@@ -1,0 +1,257 @@
+"""Ops of the PyTorch port against the JAX package, on the CPU.
+
+The port's kernel wrappers take their plain PyTorch twins for CPU tensors, so
+these tests hold the twins (and the torch code around them) to the JAX
+functions on the same numpy inputs. The JAX side runs as its own tests run
+it: the jnp paths, and the Pallas kernels called directly in interpret mode.
+The kernels themselves run only on the card: tests/test_torch_port_kernels.py.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from toothgroupnetwork_tpu.models.point_transformer.backbone import (
+    PointTransformerLayer as JaxLayer)
+from toothgroupnetwork_tpu.ops import farthest_point_sample as jax_fps
+from toothgroupnetwork_tpu.ops import knn_interpolate as jax_interp
+from toothgroupnetwork_tpu.ops import knn_points as jax_knn
+from toothgroupnetwork_tpu.ops.pallas.attention_kernel import (
+    fold_attention_params as jax_fold, fused_vector_attention_packed_x)
+from toothgroupnetwork_tpu.ops.pallas.fps_kernel import (
+    fps_pallas, fps_pallas_multicloud)
+from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+    PointTransformerLayer)
+from toothgroupnetwork_tpu_torch.ops import (farthest_point_sample, index_points,
+                                             knn_interpolate, knn_points)
+from toothgroupnetwork_tpu_torch.ops.kernels import attention, fps, knn
+from toothgroupnetwork_tpu_torch.utils.weights import from_jax_variables
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _cloud(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+class TestFps:
+    def test_single_cloud(self, rng):
+        xyz = _cloud(rng, 300, 3)
+        ref = np.asarray(jax_fps(jnp.asarray(xyz), 64))
+        got = farthest_point_sample(_t(xyz), 64).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+    def test_batched(self, rng):
+        xyz = _cloud(rng, 4, 200, 3)
+        ref = np.asarray(jax_fps(jnp.asarray(xyz), 50))
+        got = farthest_point_sample(_t(xyz), 50).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+    @pytest.mark.parametrize("batched", [False, True])
+    def test_masked(self, rng, batched):
+        xyz = _cloud(rng, 3, 256, 3)
+        mask = rng.random((3, 256)) > 0.3
+        mask[1, :5] = False                       # seed is not point 0
+        if not batched:
+            xyz, mask = xyz[1], mask[1]
+        ref = np.asarray(jax_fps(jnp.asarray(xyz), 40, jnp.asarray(mask)))
+        got = farthest_point_sample(_t(xyz), 40, _t(mask)).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert np.take_along_axis(mask, got.astype(np.int64), -1).all()
+
+    def test_exhausted(self, rng):
+        xyz = _cloud(rng, 2, 64, 3)
+        mask = np.zeros((2, 64), bool)
+        mask[0, :10] = True
+        mask[1, 20:27] = True
+        ref = np.asarray(jax_fps(jnp.asarray(xyz), 16, jnp.asarray(mask)))
+        got = farthest_point_sample(_t(xyz), 16, _t(mask)).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+    def test_dead_cloud_returns_zeros(self, rng):
+        xyz = _cloud(rng, 2, 32, 3)
+        mask = np.zeros((2, 32), bool)
+        mask[0] = True
+        got = farthest_point_sample(_t(xyz), 8, _t(mask)).numpy()
+        ref = np.asarray(jax_fps(jnp.asarray(xyz), 8, jnp.asarray(mask)))
+        np.testing.assert_array_equal(got, ref)
+        assert (got[1] == 0).all()
+
+    def test_pallas_single(self, rng):
+        xyz = _cloud(rng, 300, 3)
+        mask = rng.random(300) > 0.2
+        ref = np.asarray(fps_pallas(jnp.asarray(xyz), 48, jnp.asarray(mask)))
+        got = farthest_point_sample(_t(xyz), 48, _t(mask)).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+    def test_pallas_multicloud(self, rng):
+        xyz = _cloud(rng, 3, 256, 3)
+        mask = np.ones((3, 256), bool)
+        mask[2, 200:] = False                     # valid points stored first
+        ref = np.asarray(fps_pallas_multicloud(jnp.asarray(xyz), 32,
+                                               jnp.asarray(mask)))
+        got = farthest_point_sample(_t(xyz), 32, _t(mask)).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+
+class TestKnn:
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("include_self", [False, True])
+    @pytest.mark.parametrize("need_dist", [False, True])
+    def test_matches_jax(self, rng, masked, include_self, need_dist):
+        pts = _cloud(rng, 2, 150, 3)
+        query = pts if include_self else _cloud(rng, 2, 90, 3)
+        mask = (rng.random((2, 150)) > 0.25) if masked else None
+        jm = None if mask is None else jnp.asarray(mask)
+        ref_i, ref_d = jax_knn(jnp.asarray(query), jnp.asarray(pts), 12,
+                               jm if include_self else None, jm,
+                               include_self=include_self, need_dist=need_dist)
+        got_i, got_d = knn_points(_t(query), _t(pts), 12,
+                                  None if mask is None else _t(mask),
+                                  None if mask is None else _t(mask),
+                                  include_self=include_self, need_dist=need_dist)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(ref_d), atol=1e-5)
+
+    @pytest.mark.parametrize("include_self", [False, True])
+    @pytest.mark.parametrize("need_dist", [False, True])
+    def test_k_exceeds_n_tail(self, rng, include_self, need_dist):
+        pts = _cloud(rng, 2, 10, 3)
+        query = pts if include_self else _cloud(rng, 2, 7, 3)
+        ref_i, ref_d = jax_knn(jnp.asarray(query), jnp.asarray(pts), 16,
+                               include_self=include_self, need_dist=need_dist)
+        got_i, got_d = knn_points(_t(query), _t(pts), 16,
+                                  include_self=include_self, need_dist=need_dist)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(ref_d), atol=1e-5)
+        if not include_self:
+            assert (got_i.numpy()[..., 10:] == 0).all()
+
+    def test_unbatched(self, rng):
+        pts, query = _cloud(rng, 120, 3), _cloud(rng, 40, 3)
+        ref_i, ref_d = jax_knn(jnp.asarray(query), jnp.asarray(pts), 5)
+        got_i, got_d = knn_points(_t(query), _t(pts), 5)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(ref_d), atol=1e-5)
+
+    def test_select_chunks_agree(self, rng):
+        q, p = _cloud(rng, 1, 300, 3), _cloud(rng, 1, 200, 3)
+        a = knn.knn_select_reference(_t(q), _t(p), 9, chunk=64)
+        b = knn.knn_select_reference(_t(q), _t(p), 9, chunk=1024)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+    def test_knn_interpolate(self, rng):
+        tgt, src = _cloud(rng, 2, 80, 3), _cloud(rng, 2, 30, 3)
+        feat = _cloud(rng, 2, 30, 16)
+        mask = rng.random((2, 30)) > 0.2
+        ref = jax_interp(jnp.asarray(tgt), jnp.asarray(src), jnp.asarray(feat), 3,
+                         None, jnp.asarray(mask))
+        got = knn_interpolate(_t(tgt), _t(src), _t(feat), 3, None, _t(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+    def test_index_points(self, rng):
+        pts = _cloud(rng, 2, 10, 4)
+        idx = rng.integers(0, 10, (2, 5, 3))
+        got = index_points(_t(pts), _t(idx)).numpy()
+        ref = np.stack([pts[b][idx[b]] for b in range(2)])
+        np.testing.assert_array_equal(got, ref)
+
+
+def _attention_setup(rng, b, n, kk, cc):
+    """tests/test_fused_attention.py:_setup: a flax layer with randomised
+    batch_stats, plus the same weights in the port's layer."""
+    lay = JaxLayer(planes=cc)
+    pp = jnp.asarray(rng.standard_normal((b, n, 3)) * 0.2, jnp.float32)
+    xx = jnp.asarray(rng.standard_normal((b, n, cc)) * 0.2, jnp.float32)
+    kidx, _ = jax_knn(pp, pp, kk, include_self=True)
+    vs = lay.init(jax.random.PRNGKey(0), pp, xx, kidx, None, train=True)
+    stats = jax.tree_util.tree_map(
+        lambda a: a + jnp.asarray(rng.standard_normal(a.shape) * 0.1 + 0.5,
+                                  a.dtype), vs["batch_stats"])
+    vs = {"params": vs["params"], "batch_stats": stats}
+    flat = {"/".join(str(getattr(k, "key", k)) for k in kp): np.asarray(v)
+            for kp, v in jax.tree_util.tree_flatten_with_path(vs)[0]}
+    port = PointTransformerLayer(cc, device="cpu")
+    port.load_state_dict(from_jax_variables(flat))
+    return lay, vs, port, pp, xx, kidx
+
+
+class TestAttention:
+    def test_layer_matches_xla_path(self, rng, monkeypatch):
+        lay, vs, port, pp, xx, kidx = _attention_setup(rng, 2, 200, 12, 32)
+        monkeypatch.setenv("TGN_TPU_ATTENTION", "xla")
+        ref = lay.apply(vs, pp, xx, kidx, None, False)
+        with torch.no_grad():
+            got = port(_t(np.asarray(pp)), _t(np.asarray(xx)),
+                       _t(np.asarray(kidx)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+    def test_matches_packed_x_kernel(self, rng):
+        lay, vs, port, pp, xx, kidx = _attention_setup(rng, 3, 160, 12, 32)
+        b, n, kk = kidx.shape
+        p = vs["params"]
+        q = (xx.reshape(b * n, -1) @ p["linear_q"]["kernel"]
+             + p["linear_q"]["bias"])
+        from toothgroupnetwork_tpu.ops.gather import index_points as jax_gather
+
+        x_g = jax_gather(xx, kidx).reshape(b * n * kk, -1)
+        p_r = (jax_gather(pp, kidx) - pp[:, :, None, :]).reshape(-1, 3)
+        ref = fused_vector_attention_packed_x(q, x_g, p_r, jax_fold(vs), k=kk)
+        with torch.no_grad():
+            got = attention.fused_vector_attention(
+                _t(np.asarray(xx)), _t(np.asarray(pp)), _t(np.asarray(kidx)),
+                _t(np.asarray(q)), attention.fold_attention_params(port))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+    def test_fold_matches_jax_fold(self, rng):
+        _, vs, port, *_ = _attention_setup(rng, 1, 40, 8, 16)
+        ref = jax_fold(vs)
+        with torch.no_grad():
+            got = attention.fold_attention_params(port)
+        for key, val in ref.items():
+            np.testing.assert_allclose(got[key].detach().numpy(), np.asarray(val),
+                                       rtol=1e-6, atol=1e-7, err_msg=key)
+
+
+class TestWrappers:
+    def test_counters_untouched_by_twins(self, rng):
+        before = (fps.fps.launches, knn.knn_select.launches,
+                  attention.fused_vector_attention.launches)
+        xyz = _t(_cloud(rng, 1, 50, 3))
+        fps.fps(xyz, 5)
+        knn.knn_select(xyz, xyz, 4)
+        assert (fps.fps.launches, knn.knn_select.launches,
+                attention.fused_vector_attention.launches) == before
+
+    def test_other_devices_raise(self):
+        meta = torch.empty((1, 8, 3), device="meta")
+        with pytest.raises(ValueError):
+            fps.fps(meta, 2)
+
+    def test_import_hygiene(self):
+        """Every module of the port imports without JAX or flax (and without
+        nvcc or a card: nothing is built at import)."""
+        code = (
+            "import importlib, pkgutil, sys\n"
+            "import toothgroupnetwork_tpu_torch as pkg\n"
+            "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'flax' not in sys.modules, 'flax imported'\n"
+            "print('clean')\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "clean" in out.stdout
+

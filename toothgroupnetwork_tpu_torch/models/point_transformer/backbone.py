@@ -1,0 +1,246 @@
+"""Point-Transformer segmentation backbone, eval forward (counterpart of
+toothgroupnetwork_tpu/models/point_transformer/backbone.py).
+
+Dense padded ``[B, N, C]`` tensors with per-stage static sizes (24000 -> 6000
+-> 1500 -> 375 -> 93 at stride (1,4,4,4,4)). Submodule attribute names are
+the flax module names, so a flax checkpoint maps onto ``state_dict`` keys
+mechanically (utils/weights.py). Structure kept from the JAX package:
+  * one kNN neighbourhood per stage, shared by every block of the stage,
+  * a stride-1 stage with a no-larger k reuses the previous stage's kNN
+    k-prefix (exact kNN lists are ascending),
+  * a stride-1 TransitionUp and a stride-1 head upsample are the identity,
+  * every attention layer runs the fused kernel K3 (ops/kernels/attention.py),
+    which computes the relative positions from ``p`` and the kNN indices
+    itself (the JAX package hoists that gather per stage).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+from torch import nn
+
+from ...nn.layers import MaskedBatchNorm, masked_mean
+from ...ops import (farthest_point_sample, index_points, knn_interpolate,
+                    knn_points, knn_self)
+from ...ops.kernels.attention import fold_attention_params, fused_vector_attention
+
+
+def _linear(din: int, dout: int, device, bias: bool = True) -> nn.Linear:
+    return nn.Linear(din, dout, bias=bias, device=device)
+
+
+class PointTransformerLayer(nn.Module):
+    """Vector self-attention over a precomputed kNN neighbourhood."""
+
+    def __init__(self, planes: int, share_planes: int = 8, *, device):
+        super().__init__()
+        mid = out = planes
+        cs = out // share_planes
+        self.linear_q = _linear(planes, mid, device)
+        self.linear_k = _linear(planes, mid, device)
+        self.linear_v = _linear(planes, out, device)
+        self.linear_p0 = _linear(3, 3, device)
+        self.linear_p_bn = MaskedBatchNorm(3, device=device)
+        self.linear_p1 = _linear(3, out, device)
+        self.linear_w_bn0 = MaskedBatchNorm(mid, device=device)
+        self.linear_w0 = _linear(mid, mid // share_planes, device)
+        self.linear_w_bn1 = MaskedBatchNorm(cs, device=device)
+        self.linear_w1 = _linear(cs, cs, device)
+
+    def forward(self, p, x, knn_idx):
+        b, n, _ = knn_idx.shape
+        q = self.linear_q(x).reshape(b * n, -1).contiguous()
+        agg = fused_vector_attention(x.contiguous(), p.contiguous(),
+                                     knn_idx.contiguous(), q,
+                                     fold_attention_params(self))
+        return agg.reshape(b, n, -1)
+
+
+class PointTransformerBlock(nn.Module):
+    """linear+BN+ReLU -> attention+BN+ReLU -> linear+BN, + skip, ReLU."""
+
+    def __init__(self, planes: int, share_planes: int = 8, *, device):
+        super().__init__()
+        self.linear1 = _linear(planes, planes, device, bias=False)
+        self.bn1 = MaskedBatchNorm(planes, device=device)
+        self.transformer = PointTransformerLayer(planes, share_planes, device=device)
+        self.bn2 = MaskedBatchNorm(planes, device=device)
+        self.linear3 = _linear(planes, planes, device, bias=False)
+        self.bn3 = MaskedBatchNorm(planes, device=device)
+
+    def forward(self, p, x, knn_idx):
+        h = torch.relu(self.bn1(self.linear1(x)))
+        h = torch.relu(self.bn2(self.transformer(p, h, knn_idx)))
+        h = self.bn3(self.linear3(h))
+        return torch.relu(h + x)
+
+
+class TransitionDown(nn.Module):
+    """stride > 1: FPS to N/stride, kNN-group with relative xyz,
+    linear+BN+ReLU, max-pool; stride 1: linear+BN+ReLU."""
+
+    def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
+                 nsample: int = 16, *, device):
+        super().__init__()
+        self.stride, self.nsample = stride, nsample
+        din = in_planes if stride == 1 else 3 + in_planes
+        self.linear = _linear(din, out_planes, device, bias=False)
+        self.bn = MaskedBatchNorm(out_planes, device=device)
+
+    def forward(self, p, x, mask=None):
+        if self.stride == 1:
+            return p, torch.relu(self.bn(self.linear(x))), mask
+        m = x.shape[1] // self.stride
+        fps_idx = farthest_point_sample(p, m, mask)
+        new_p = index_points(p, fps_idx)
+        new_mask = None
+        if mask is not None:
+            new_mask = torch.gather(mask, 1, fps_idx.long())
+        idx, _ = knn_points(new_p, p, self.nsample, new_mask, mask,
+                            need_dist=False)
+        grouped = torch.cat([index_points(p, idx) - new_p[:, :, None, :],
+                             index_points(x, idx)], dim=-1)
+        h = torch.relu(self.bn(self.linear(grouped)))
+        return new_p, h.amax(dim=2), new_mask
+
+
+class TransitionUp(nn.Module):
+    """Decoder lateral + upsample; ``out_planes=None`` is the bottleneck head
+    (concat a per-cloud mean embedding instead of upsampling)."""
+
+    def __init__(self, in_planes: int, out_planes: int | None = None, *, device):
+        super().__init__()
+        self.is_head = out_planes is None
+        if self.is_head:
+            self.linear2 = _linear(in_planes, in_planes, device)
+            self.linear1 = _linear(2 * in_planes, in_planes, device)
+            self.bn1 = MaskedBatchNorm(in_planes, device=device)
+        else:
+            self.linear1 = _linear(out_planes, out_planes, device)
+            self.bn1 = MaskedBatchNorm(out_planes, device=device)
+            self.linear2 = _linear(in_planes, out_planes, device)
+            self.bn2 = MaskedBatchNorm(out_planes, device=device)
+
+    def forward(self, p1, x1, mask1=None, p2=None, x2=None, mask2=None):
+        if self.is_head:
+            g = torch.relu(self.linear2(masked_mean(x1, mask1, dim=1)))
+            h = torch.cat([x1, g[:, None, :].expand(-1, x1.shape[1], -1)], dim=-1)
+            return torch.relu(self.bn1(self.linear1(h)))
+        a = torch.relu(self.bn1(self.linear1(x1)))
+        b = torch.relu(self.bn2(self.linear2(x2)))
+        # stride-1 lateral: 3-NN inverse-distance interpolation onto the same
+        # point set is the identity
+        up = b if p1 is p2 else knn_interpolate(p1, p2, b, 3, mask1, mask2)
+        return a + up
+
+
+class StageMLP(nn.Module):
+    """MultiHead per-stage latent MLP: Linear + BN + ReLU."""
+
+    def __init__(self, din: int, base_fdim: int, *, device):
+        super().__init__()
+        self.dense = _linear(din, base_fdim, device)
+        self.bn = MaskedBatchNorm(base_fdim, device=device)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.dense(x)))
+
+
+class MultiHead(nn.Module):
+    """Per-stage latent MLPs -> 1-NN upsample to full resolution -> concat ->
+    Linear(k)."""
+
+    def __init__(self, k: int, planes: Sequence[int], base_fdim: int = 32, *,
+                 device):
+        super().__init__()
+        self.n_stages = len(planes)
+        for i, c in enumerate(planes):
+            self.add_module(f"stage_{i}", StageMLP(c, base_fdim, device=device))
+        self.cls = _linear(base_fdim * len(planes), k, device)
+
+    def forward(self, stage_x, up1_idx):
+        collect = []
+        for i, x in enumerate(stage_x):
+            lat = getattr(self, f"stage_{i}")(x)
+            collect.append(lat if i == 0 else index_points(lat, up1_idx[i]))
+        return self.cls(torch.cat(collect, dim=-1))
+
+
+class PointTransformerSeg(nn.Module):
+    """The U-Net. ``forward`` returns ``{"sem_1": [B, N, k], "offset_1": [B, N, 3]}``."""
+
+    def __init__(self, k: int, c: int = 6,
+                 planes: Sequence[int] = (32, 64, 128, 256, 512),
+                 stride: Sequence[int] = (1, 4, 4, 4, 4),
+                 nsample: Sequence[int] = (36, 24, 24, 24, 24),
+                 blocks: Sequence[int] = (2, 3, 4, 6, 3),
+                 block_num: int = 5, share_planes: int = 8,
+                 base_fdim: int = 32, *, device):
+        super().__init__()
+        self.planes, self.stride = tuple(planes), tuple(stride)
+        self.nsample, self.blocks = tuple(nsample), tuple(blocks)
+        self.block_num = bn = block_num
+        for i in range(bn):
+            din = c if i == 0 else planes[i - 1]
+            self.add_module(f"enc{i + 1}_down", TransitionDown(
+                din, planes[i], stride[i], nsample[i], device=device))
+            for j in range(1, blocks[i]):
+                self.add_module(f"enc{i + 1}_block{j}", PointTransformerBlock(
+                    planes[i], share_planes, device=device))
+        self.add_module(f"dec{bn}_up", TransitionUp(planes[bn - 1], None,
+                                                    device=device))
+        self.add_module(f"dec{bn}_block1", PointTransformerBlock(
+            planes[bn - 1], share_planes, device=device))
+        for i in range(bn - 2, -1, -1):
+            self.add_module(f"dec{i + 1}_up", TransitionUp(
+                planes[i + 1], planes[i], device=device))
+            self.add_module(f"dec{i + 1}_block1", PointTransformerBlock(
+                planes[i], share_planes, device=device))
+        self.cls_head = MultiHead(k, planes[:bn], base_fdim, device=device)
+        self.offset_head = MultiHead(3, planes[:bn], base_fdim, device=device)
+
+    def forward(self, feat, mask=None):
+        bn = self.block_num
+        p = feat[..., :3].to(torch.float32).contiguous()
+        x = feat.to(torch.float32)
+
+        stages = []
+        for i in range(bn):
+            p, x, mask = getattr(self, f"enc{i + 1}_down")(p, x, mask)
+            if (i > 0 and self.stride[i] == 1
+                    and self.nsample[i] <= self.nsample[i - 1]):
+                knn_idx = stages[i - 1]["knn_idx"][..., :self.nsample[i]].contiguous()
+            else:
+                knn_idx, _ = knn_self(p, self.nsample[i], mask)
+            for j in range(1, self.blocks[i]):
+                x = getattr(self, f"enc{i + 1}_block{j}")(p, x, knn_idx)
+            stages.append({"p": p, "x": x, "mask": mask, "knn_idx": knn_idx})
+
+        top = stages[bn - 1]
+        x = getattr(self, f"dec{bn}_up")(top["p"], top["x"], top["mask"])
+        x = getattr(self, f"dec{bn}_block1")(top["p"], x, top["knn_idx"])
+        up_x = [None] * bn
+        up_x[bn - 1] = x
+        for i in range(bn - 2, -1, -1):
+            lo, hi = stages[i], stages[i + 1]
+            x = getattr(self, f"dec{i + 1}_up")(lo["p"], lo["x"], lo["mask"],
+                                                hi["p"], up_x[i + 1], hi["mask"])
+            x = getattr(self, f"dec{i + 1}_block1")(lo["p"], x, lo["knn_idx"])
+            up_x[i] = x
+
+        # 1-NN upsample indices shared by both heads; a stage that kept the
+        # full-resolution points (all strides so far 1) maps by identity
+        p0, m0 = stages[0]["p"], stages[0]["mask"]
+        up1_idx = [None]
+        for i in range(1, bn):
+            if stages[i]["p"] is p0:
+                up1_idx.append(torch.arange(p0.shape[1], device=p0.device)
+                               .expand(p0.shape[0], -1))
+            else:
+                idx, _ = knn_points(p0, stages[i]["p"], 1, m0, stages[i]["mask"],
+                                    need_dist=False)
+                up1_idx.append(idx[..., 0])
+        return {"sem_1": self.cls_head(up_x, up1_idx),
+                "offset_1": self.offset_head(up_x, up1_idx)}

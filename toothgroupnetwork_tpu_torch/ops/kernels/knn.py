@@ -1,0 +1,85 @@
+"""K2 — exact k-nearest-neighbour selection (csrc/knn.cu) and its plain twin.
+
+Replaces toothgroupnetwork_tpu/ops/pallas/knn_kernel.py:knn_pallas_select
+(``_knn_kernel``). The contract is that of ``knn_points`` on CPU in the JAX
+package (csrc/knn.cu states it, with the kernel's bound and design): sorted
+ascending by (d2, index), masked points biased by 1e10, and for k > n a tail
+of index 0 at d2 = 1e10. The self-first dedup and the exact re-score stay in
+plain torch (ops/knn.py), as they stay in XLA around the Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..distance import square_distance
+from . import build
+from ._launch import on_cpu, require, stream_of
+
+MAX_K = 64
+
+
+def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
+               bias: torch.Tensor | None = None):
+    """query ``[B, M, 3]``, points ``[B, N, 3]`` f32 contiguous, bias ``[B, N]``
+    f32 or None -> (idx int32 ``[B, M, k]``, d2 f32 ``[B, M, k]``).
+    CPU tensors take :func:`knn_select_reference`."""
+    if on_cpu(query):
+        return knn_select_reference(query, points, k, bias)
+    dev = query.device
+    require(query, "query", torch.float32, 3, dev)
+    require(points, "points", torch.float32, 3, dev)
+    b, m, _ = query.shape
+    n = points.shape[1]
+    if query.shape[2] != 3 or points.shape[2] != 3 or points.shape[0] != b:
+        raise ValueError(f"knn: query {tuple(query.shape)} points "
+                         f"{tuple(points.shape)}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if bias is not None:
+        require(bias, "bias", torch.float32, 2, dev)
+        if tuple(bias.shape) != (b, n):
+            raise ValueError(f"bias {tuple(bias.shape)} != {(b, n)}")
+    with torch.cuda.device(dev):
+        lib = build.library()
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=dev)
+        d2 = torch.empty((b, m, k), dtype=torch.float32, device=dev)
+        status = lib.tgn_knn(query.data_ptr(), points.data_ptr(),
+                             None if bias is None else bias.data_ptr(),
+                             b, m, n, k, idx.data_ptr(), d2.data_ptr(),
+                             stream_of(dev))
+        build.check(status, "tgn_knn")
+    knn_select.launches += 1
+    return idx, d2
+
+
+knn_select.launches = 0
+
+
+def smallest_k(d2: torch.Tensor, k: int):
+    """The ``k`` smallest entries of the last axis, ascending, ties to the lower
+    index (a stable sort); for k > n the tail is index 0 at 1e10.
+    Returns (idx int32, values)."""
+    n = d2.shape[-1]
+    vals, idx = torch.sort(d2, dim=-1, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k].to(torch.int32)
+    if k > n:
+        tail = d2.shape[:-1] + (k - n,)
+        idx = torch.cat([idx, idx.new_zeros(tail)], dim=-1)
+        vals = torch.cat([vals, vals.new_full(tail, 1e10)], dim=-1)
+    return idx, vals
+
+
+def knn_select_reference(query: torch.Tensor, points: torch.Tensor, k: int,
+                         bias: torch.Tensor | None = None,
+                         chunk: int = 1024):
+    """Plain twin of :func:`knn_select`, query rows in chunks so [M, N] is
+    never whole; distances in the kernel's order (ops/distance.py)."""
+    idx, d2 = [], []
+    for s in range(0, query.shape[1], chunk):
+        d = square_distance(query[:, s:s + chunk], points)
+        d = d + (0.0 if bias is None else bias[:, None, :])
+        i, v = smallest_k(d, k)
+        idx.append(i)
+        d2.append(v)
+    return torch.cat(idx, dim=1), torch.cat(d2, dim=1)

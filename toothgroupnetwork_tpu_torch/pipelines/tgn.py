@@ -1,0 +1,215 @@
+"""tgnet two-stage inference pipeline (counterpart of
+toothgroupnetwork_tpu/pipelines/tgn.py:TgnInferencePipeline on its exact,
+non-TPU route):
+
+  1. host mesh prep (dedup, normalise, normals, subdivide if small), then FPS
+     to ``n_sample`` points on the device (K1),
+  2. fps model stage 1: 10-class half-arch semantics + offsets,
+  3. host: DBSCAN/PCA/MeanShift instancing of the offset-moved points -> crop
+     centroids,
+  4. fps model stage 2 over 16 crop slots -> per-point FG/BG votes,
+  5. host: refined instancing from the vote mask,
+  6. host: boundary-purity resampling (KD-tree purity, FPS fill through K1),
+  7. bdl model stage 1 + 2 on the boundary cloud, host KMeans instancing,
+  8. host: arch disambiguation (9 -> 16 classes) + boundary-cluster fusion,
+  9. host 1-NN transfer to every original vertex + FDI remap.
+
+The model forwards run on ``device`` with float32 throughout; everything
+between them is host numpy.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from scipy.spatial import cKDTree
+
+from toothgroupnetwork_tpu.data.scan_prep import N_SAMPLE, prep_scan_host_tgn
+
+from ..models.tasks import build_tgnet_bdl, build_tgnet_fps, tgnet_fps_config
+from ..models.tgnet import make_crops
+from ..ops import farthest_point_sample
+from ..postprocess.boundary import boundary_sampled_feats
+from ..postprocess.clustering import clustering_points, get_clustering_labels
+from ..postprocess.fusion import disambiguate_arch_labels, merge_boundary_clusters
+from ..utils.weights import load_npz
+from .base import class_logits_to_fdi
+
+K_MAX = 16  # crop slots; challenge jaws have <= 16 teeth
+
+
+def use_full_fp32() -> None:
+    """Keep every float32 matrix product in full float32 on the card (no
+    TF32), as the JAX package selects ``Precision.HIGHEST``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _pad_centroids(centroids, device):
+    """Host centroid list -> fixed ``[1, K_MAX, 3]`` slots (sentinel 1e3 for
+    empty ones; beyond K_MAX centroids the first K_MAX are kept, as in the
+    JAX package) + validity ``[1, K_MAX]``."""
+    cents = np.full((1, K_MAX, 3), 1e3, np.float32)
+    valid = np.zeros((1, K_MAX), bool)
+    for i, c in enumerate(centroids[:K_MAX]):
+        cents[0, i] = c
+        valid[0, i] = True
+    return (torch.from_numpy(cents).to(device), torch.from_numpy(valid).to(device),
+            valid)
+
+
+def _device_votes(sem2: torch.Tensor, crop_idx: torch.Tensor, valid: np.ndarray,
+                  n_points: int) -> torch.Tensor:
+    """Sum each valid crop's FG/BG logits onto its source points, argmax ->
+    uint8 ``[N]``. The crops are added one at a time: a crop's indices are
+    distinct, so no two additions race and the result is the same on every
+    run (a float atomic scatter of all crops at once is not)."""
+    votes = torch.zeros((n_points, 2), dtype=torch.float32, device=sem2.device)
+    for c in np.flatnonzero(valid):
+        votes.index_add_(0, crop_idx[c].long(), sem2[c].float())
+    return torch.argmax(votes, dim=1).to(torch.uint8)
+
+
+def _moved_f16(feats_xyz: torch.Tensor, offset: torch.Tensor) -> np.ndarray:
+    """xyz + offset rounded through float16, as the JAX package hands the
+    moved points to the host clustering."""
+    return (feats_xyz + offset).to(torch.float16).float().cpu().numpy()
+
+
+class TgnInferencePipeline:
+    def __init__(self, fps_ckpt: str, bdl_ckpt: str, config: dict | None = None,
+                 bdl_arch: dict | None = None, n_sample: int = N_SAMPLE,
+                 boundary_info: dict | None = None, *, device):
+        use_full_fp32()
+        self.device = torch.device(device)
+        cfg = copy.deepcopy(config) if config else tgnet_fps_config()
+        self.crop_size = cfg["model_parameter"].get("crop_sample_size", 3072)
+        self.n_sample = n_sample
+        # boundary_sampling_info defaults (train_configs/tgnet_bdl.py)
+        self.boundary_info = boundary_info or {
+            "bdl_ratio": 0.7, "num_of_bdl_points": 20000,
+            "num_of_all_points": n_sample}
+        if (self.boundary_info["num_of_bdl_points"]
+                > self.boundary_info["num_of_all_points"]):
+            raise ValueError("boundary_info: num_of_bdl_points must be <= "
+                             f"num_of_all_points (got {self.boundary_info})")
+        self.fps_module = load_npz(fps_ckpt, build_tgnet_fps(
+            cfg, device=self.device)).eval()
+        self.bdl_module = load_npz(bdl_ckpt, build_tgnet_bdl(
+            self.crop_size, bdl_arch, device=self.device)).eval()
+        # per-phase wall seconds of the last completed call
+        self.timings: dict[str, float] = defaultdict(float)
+
+    @staticmethod
+    def _t(timings: dict, name: str, t0: float) -> float:
+        now = time.perf_counter()
+        timings[name] += now - t0
+        return now
+
+    def _stage2_votes(self, module, feats: torch.Tensor, centroids) -> np.ndarray:
+        """Crops around ``centroids`` + stage 2 + vote aggregation -> the
+        per-point FG mask (uint8 ``[N]``) on the host."""
+        cents, valid, valid_np = _pad_centroids(centroids, self.device)
+        crops, crop_mask, crop_idx = make_crops(feats, cents, valid, self.crop_size)
+        out = module.stage2(crops, crop_mask)
+        return _device_votes(out["sem_1"], crop_idx[0], valid_np[0],
+                             feats.shape[1]).cpu().numpy()
+
+    @torch.inference_mode()
+    def __call__(self, stl_path: str) -> dict:
+        timings: dict[str, float] = defaultdict(float)
+        dev = self.device
+        t0 = time.perf_counter()
+        org_feats, bdl_feats = prep_scan_host_tgn(stl_path, self.n_sample)
+        n_vertices = org_feats.shape[0]
+        src = torch.from_numpy(bdl_feats).to(dev)
+        if bdl_feats.shape[0] <= self.n_sample:
+            reps = -(-self.n_sample // bdl_feats.shape[0])
+            sample_idx = torch.arange(bdl_feats.shape[0], device=dev).repeat(
+                reps)[:self.n_sample]
+        else:
+            sample_idx = farthest_point_sample(src[:, :3], self.n_sample).long()
+        feats_dev = src[sample_idx][None]
+        # the host copy of the indices waits for the FPS, so its time is
+        # counted here and not in the next phase
+        sampled = bdl_feats[sample_idx.cpu().numpy()]
+        t0 = self._t(timings, "mesh_prep", t0)
+
+        # ---------------- stage 1 (fps model) ----------------
+        out = self.fps_module.stage1(feats_dev)
+        cls_1 = torch.argmax(out["sem_1"][0], dim=-1).cpu().numpy().astype(np.int32)
+        moved = _moved_f16(feats_dev[0, :, :3], out["offset_1"][0])
+        t0 = self._t(timings, "fps:stage1_device", t0)
+
+        fg_labels = get_clustering_labels(moved, cls_1)
+        fg_moved = moved[cls_1 != 0]
+        centroids = [fg_moved[fg_labels == i].mean(axis=0)
+                     for i in np.unique(fg_labels)]
+        t0 = self._t(timings, "fps:host_centroids", t0)
+        whole_mask = self._stage2_votes(self.fps_module, feats_dev, centroids)
+        t0 = self._t(timings, "fps:stage2_device", t0)
+
+        # refined instancing from the vote-aggregated FG mask
+        ins_labels = np.full(len(sampled), -1.0)
+        if whole_mask.any():
+            ins_labels[whole_mask != 0] = get_clustering_labels(moved, whole_mask)
+        ins_labels = (ins_labels + 1).astype(np.int64)  # 0 = bg
+        t0 = self._t(timings, "host_instancing", t0)
+
+        # ---------------- boundary stage (bdl model) ----------------
+        bdl_sampled, pseudo_labels, n_bd, nn1_idx, nn1_d2 = boundary_sampled_feats(
+            ins_labels, bdl_feats, sampled,
+            bdl_ratio=self.boundary_info["bdl_ratio"],
+            num_bdl_points=self.boundary_info["num_of_bdl_points"],
+            num_all_points=self.boundary_info["num_of_all_points"], device=dev)
+        pseudo_in = pseudo_labels.astype(np.int64) - 1  # -1 = bg
+        t0 = self._t(timings, "host_boundary_resample", t0)
+
+        # the bdl crop centroids come from the pseudo labels, known before
+        # the forward
+        xyz_b = bdl_sampled[:, :3]
+        bdl_cents = [xyz_b[pseudo_in == i].mean(axis=0)
+                     for i in np.unique(pseudo_in) if i != -1]
+        feats_b = torch.from_numpy(bdl_sampled[None]).to(dev)
+        out_b = self.bdl_module.stage1(feats_b)
+        moved_b = _moved_f16(feats_b[0, :, :3], out_b["offset_1"][0])
+        whole_mask_b = self._stage2_votes(self.bdl_module, feats_b, bdl_cents)
+        t0 = self._t(timings, "bdl:fused_device", t0)
+
+        n_clusters = len(np.unique(pseudo_in)) - 1
+        bdl_ins = np.zeros(len(bdl_sampled)) - 1
+        fg_b = whole_mask_b != 0
+        if fg_b.any() and n_clusters >= 1:
+            _, _, labels_ls = clustering_points([moved_b[fg_b]], "kmeans",
+                                                [n_clusters])
+            bdl_ins[fg_b] = labels_ls[0]
+        bdl_ins = (bdl_ins + 1).astype(np.int64)
+        t0 = self._t(timings, "host_bdl_kmeans", t0)
+
+        # ---------------- fusion ----------------
+        first_xyz = sampled[:, :3]
+        new_sem = disambiguate_arch_labels(first_xyz, ins_labels, cls_1)
+        bdl_xyz = bdl_sampled[:n_bd, :3]
+        mod_ps, mod_sem = merge_boundary_clusters(
+            first_xyz, ins_labels, new_sem, bdl_xyz, bdl_ins[:n_bd])
+        final_ins = np.concatenate([ins_labels, mod_ps], axis=0)
+        final_sem = np.concatenate([new_sem, mod_sem], axis=0)
+        t0 = self._t(timings, "host_fusion", t0)
+
+        # ---------------- 1-NN transfer + FDI remap ----------------
+        # nearest of the sampled cloud (the purity query's byproduct) or of
+        # the boundary cloud, ties to the sampled side
+        nn = nn1_idx[:n_vertices].astype(np.int64)
+        if n_bd:
+            d_b, nn_b = cKDTree(bdl_xyz).query(org_feats[:, :3], k=1, workers=-1)
+            use_b = (d_b ** 2) < nn1_d2[:n_vertices]
+            nn = np.where(use_b, len(first_xyz) + nn_b, nn)
+        result_ins = final_ins[nn.reshape(-1)]
+        result_sem = class_logits_to_fdi(final_sem[nn.reshape(-1)])
+        self._t(timings, "host_1nn_transfer", t0)
+        self.timings = timings
+        return {"sem": result_sem.reshape(-1), "ins": result_ins.reshape(-1)}
