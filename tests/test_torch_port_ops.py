@@ -209,7 +209,7 @@ class TestAttention:
         p_r = (jax_gather(pp, kidx) - pp[:, :, None, :]).reshape(-1, 3)
         ref = fused_vector_attention_packed_x(q, x_g, p_r, jax_fold(vs), k=kk)
         with torch.no_grad():
-            got = attention.fused_vector_attention(
+            got = attention.fused_vector_attention_packed_x(
                 _t(np.asarray(xx)), _t(np.asarray(pp)), _t(np.asarray(kidx)),
                 _t(np.asarray(q)), attention.fold_attention_params(port))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
@@ -227,12 +227,12 @@ class TestAttention:
 class TestWrappers:
     def test_counters_untouched_by_twins(self, rng):
         before = (fps.fps.launches, knn.knn_select.launches,
-                  attention.fused_vector_attention.launches)
+                  attention.fused_vector_attention_packed_x.launches)
         xyz = _t(_cloud(rng, 1, 50, 3))
         fps.fps(xyz, 5)
         knn.knn_select(xyz, xyz, 4)
         assert (fps.fps.launches, knn.knn_select.launches,
-                attention.fused_vector_attention.launches) == before
+                attention.fused_vector_attention_packed_x.launches) == before
 
     def test_other_devices_raise(self):
         meta = torch.empty((1, 8, 3), device="meta")

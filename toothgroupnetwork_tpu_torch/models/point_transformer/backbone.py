@@ -11,7 +11,12 @@ mechanically (utils/weights.py). Structure kept from the JAX package:
   * a stride-1 TransitionUp and a stride-1 head upsample are the identity,
   * every attention layer runs the fused kernel K3 (ops/kernels/attention.py),
     which computes the relative positions from ``p`` and the kNN indices
-    itself (the JAX package hoists that gather per stage).
+    itself (the JAX package hoists that gather per stage),
+  * with ``cell_attention`` (eval, B == 1, N % 8 == 0, points still in the
+    caller's spatially sorted order) a stage builds a super-row candidate
+    context instead (ops/cells.py): the relative positions are selected once
+    per stage through K5, each layer selects its neighbour rows through K4
+    and runs K6 on the gathered rows.
 """
 
 from __future__ import annotations
@@ -24,7 +29,12 @@ from torch import nn
 from ...nn.layers import MaskedBatchNorm, masked_mean
 from ...ops import (farthest_point_sample, index_points, knn_interpolate,
                     knn_points, knn_self)
-from ...ops.kernels.attention import fold_attention_params, fused_vector_attention
+from ...ops.cells import (build_cell_candidates, gather_candidate_blocks,
+                          pos_with_self_fallback)
+from ...ops.kernels.attention import (fold_attention_params,
+                                      fused_vector_attention,
+                                      fused_vector_attention_packed_x)
+from ...ops.kernels.cell_select import cell_select_p, cell_select_x
 
 
 def _linear(din: int, dout: int, device, bias: bool = True) -> nn.Linear:
@@ -49,12 +59,20 @@ class PointTransformerLayer(nn.Module):
         self.linear_w_bn1 = MaskedBatchNorm(cs, device=device)
         self.linear_w1 = _linear(cs, cs, device)
 
-    def forward(self, p, x, knn_idx):
-        b, n, _ = knn_idx.shape
+    def forward(self, p, x, knn_idx, cell=None):
+        """``cell``: the stage's ``(cand, pos, p_r)`` candidate context
+        (B == 1), or None for the fused-gather kernel K3."""
+        b, n, kk = knn_idx.shape
         q = self.linear_q(x).reshape(b * n, -1).contiguous()
-        agg = fused_vector_attention(x.contiguous(), p.contiguous(),
-                                     knn_idx.contiguous(), q,
-                                     fold_attention_params(self))
+        params = fold_attention_params(self)
+        if cell is None:
+            agg = fused_vector_attention_packed_x(
+                x.contiguous(), p.contiguous(), knn_idx.contiguous(), q, params)
+        else:
+            cand, pos, p_r = cell
+            x_g = cell_select_x(gather_candidate_blocks(x[0], cand), pos)
+            agg = fused_vector_attention(q, x_g.reshape(b * n * kk, -1), p_r,
+                                         params, k=kk)
         return agg.reshape(b, n, -1)
 
 
@@ -70,9 +88,9 @@ class PointTransformerBlock(nn.Module):
         self.linear3 = _linear(planes, planes, device, bias=False)
         self.bn3 = MaskedBatchNorm(planes, device=device)
 
-    def forward(self, p, x, knn_idx):
+    def forward(self, p, x, knn_idx, cell=None):
         h = torch.relu(self.bn1(self.linear1(x)))
-        h = torch.relu(self.bn2(self.transformer(p, h, knn_idx)))
+        h = torch.relu(self.bn2(self.transformer(p, h, knn_idx, cell)))
         h = self.bn3(self.linear3(h))
         return torch.relu(h + x)
 
@@ -177,8 +195,13 @@ class PointTransformerSeg(nn.Module):
                  nsample: Sequence[int] = (36, 24, 24, 24, 24),
                  blocks: Sequence[int] = (2, 3, 4, 6, 3),
                  block_num: int = 5, share_planes: int = 8,
-                 base_fdim: int = 32, *, device):
+                 base_fdim: int = 32, cell_attention: bool = False,
+                 cell_slots: int = 32, *, device):
         super().__init__()
+        # cell_attention needs the caller to feed a spatially sorted cloud
+        # (ops/cells.py:spatial_sort_perm); an unsorted one loses neighbours
+        # to slot overflow
+        self.cell_attention, self.cell_slots = cell_attention, cell_slots
         self.planes, self.stride = tuple(planes), tuple(stride)
         self.nsample, self.blocks = tuple(nsample), tuple(blocks)
         self.block_num = bn = block_num
@@ -201,33 +224,63 @@ class PointTransformerSeg(nn.Module):
         self.cls_head = MultiHead(k, planes[:bn], base_fdim, device=device)
         self.offset_head = MultiHead(3, planes[:bn], base_fdim, device=device)
 
+    def _cell_ctx(self, p, knn_idx):
+        """The stage's ``(cand, pos)`` candidate context, or None where the
+        path does not apply: train mode, B != 1, or N not a multiple of 8."""
+        b, n, _ = knn_idx.shape
+        if not self.cell_attention or self.training or b != 1 or n % 8:
+            return None
+        cand, pos, _ = build_cell_candidates(knn_idx[0], self.cell_slots)
+        return cand, pos_with_self_fallback(pos, self.cell_slots * 8)
+
     def forward(self, feat, mask=None):
         bn = self.block_num
         p = feat[..., :3].to(torch.float32).contiguous()
         x = feat.to(torch.float32)
 
         stages = []
+        sorted_chain = True  # points still in the caller's (sorted) order?
         for i in range(bn):
             p, x, mask = getattr(self, f"enc{i + 1}_down")(p, x, mask)
-            if (i > 0 and self.stride[i] == 1
-                    and self.nsample[i] <= self.nsample[i - 1]):
+            if self.stride[i] != 1:
+                sorted_chain = False  # FPS subset: selection order
+            reuse = (i > 0 and self.stride[i] == 1
+                     and self.nsample[i] <= self.nsample[i - 1])
+            if reuse:
                 knn_idx = stages[i - 1]["knn_idx"][..., :self.nsample[i]].contiguous()
             else:
                 knn_idx, _ = knn_self(p, self.nsample[i], mask)
+            ctx = self._cell_ctx(p, knn_idx) if sorted_chain else None
+            cell = None
+            if ctx is not None:
+                prev = stages[i - 1]["cell"] if reuse else None
+                if prev is not None:
+                    # the previous stage's relative positions, k-prefix (only
+                    # the candidate context is rebuilt for the smaller k)
+                    k0 = self.nsample[i - 1]
+                    p_r = (prev[2].reshape(-1, k0, 3)[:, :self.nsample[i]]
+                           .reshape(-1, 3).contiguous())
+                else:
+                    p_r = cell_select_p(gather_candidate_blocks(p[0], ctx[0]),
+                                        ctx[1], p[0]).reshape(-1, 3)
+                cell = (*ctx, p_r)
             for j in range(1, self.blocks[i]):
-                x = getattr(self, f"enc{i + 1}_block{j}")(p, x, knn_idx)
-            stages.append({"p": p, "x": x, "mask": mask, "knn_idx": knn_idx})
+                x = getattr(self, f"enc{i + 1}_block{j}")(p, x, knn_idx, cell)
+            stages.append({"p": p, "x": x, "mask": mask, "knn_idx": knn_idx,
+                           "cell": cell})
 
         top = stages[bn - 1]
         x = getattr(self, f"dec{bn}_up")(top["p"], top["x"], top["mask"])
-        x = getattr(self, f"dec{bn}_block1")(top["p"], x, top["knn_idx"])
+        x = getattr(self, f"dec{bn}_block1")(top["p"], x, top["knn_idx"],
+                                             top["cell"])
         up_x = [None] * bn
         up_x[bn - 1] = x
         for i in range(bn - 2, -1, -1):
             lo, hi = stages[i], stages[i + 1]
             x = getattr(self, f"dec{i + 1}_up")(lo["p"], lo["x"], lo["mask"],
                                                 hi["p"], up_x[i + 1], hi["mask"])
-            x = getattr(self, f"dec{i + 1}_block1")(lo["p"], x, lo["knn_idx"])
+            x = getattr(self, f"dec{i + 1}_block1")(lo["p"], x, lo["knn_idx"],
+                                                    lo["cell"])
             up_x[i] = x
 
         # 1-NN upsample indices shared by both heads; a stage that kept the

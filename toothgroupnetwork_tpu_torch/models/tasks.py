@@ -43,11 +43,11 @@ def backbone_kwargs(mp: dict) -> dict:
 
 def build_tgnet_fps(cfg: dict, *, device) -> TGNet:
     mp = cfg["model_parameter"]
-    if mp.get("dtype", "float32") != "float32" or mp.get("cell_attention"):
-        raise NotImplementedError("the port serves float32 without "
-                                  "cell_attention (model_parameter "
-                                  f"{mp.get('dtype')}, {mp.get('cell_attention')})")
+    if mp.get("dtype", "float32") != "float32":
+        raise NotImplementedError("the port serves float32 only (model_parameter "
+                                  f"dtype {mp.get('dtype')})")
     return TGNet(crop_size=mp.get("crop_sample_size", 3072),
+                 cell_attention=bool(mp.get("cell_attention", False)),
                  **backbone_kwargs(mp), device=device)
 
 

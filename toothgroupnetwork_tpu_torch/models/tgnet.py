@@ -45,11 +45,14 @@ class TGNet(nn.Module):
     def __init__(self, crop_size: int = 3072, c: int = 6,
                  planes=(32, 64, 128, 256, 512), stride=(1, 4, 4, 4, 4),
                  nsample=(36, 24, 24, 24, 24), blocks=(2, 3, 4, 6, 3),
-                 block_num: int = 5, *, device):
+                 block_num: int = 5, cell_attention: bool = False, *, device):
         super().__init__()
         self.crop_size = crop_size
+        # the crop half runs 16 crops at once (B != 1), where the cell path
+        # turns itself off, so both halves may share the flag
         kw = dict(c=c, planes=planes, stride=stride, nsample=nsample,
-                  blocks=blocks, block_num=block_num, device=device)
+                  blocks=blocks, block_num=block_num,
+                  cell_attention=cell_attention, device=device)
         self.first = PointTransformerSeg(k=10, **kw)
         self.second = PointTransformerSeg(k=2, **kw)
 

@@ -29,7 +29,10 @@ _SIGNATURES = {
     "tgn_fps": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
     "tgn_knn": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
     "tgn_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    "tgn_attention_gathered": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
     "tgn_attention_smem_bytes": ([_I, _I, _I], _Z),
+    "tgn_cell_select_x": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "tgn_cell_select_p": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "tgn_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -3,7 +3,8 @@ toothgroupnetwork_tpu/pipelines/tgn.py:TgnInferencePipeline on its exact,
 non-TPU route):
 
   1. host mesh prep (dedup, normalise, normals, subdivide if small), then FPS
-     to ``n_sample`` points on the device (K1),
+     to ``n_sample`` points on the device (K1); with ``cell_attention`` the
+     sample is then spatially sorted (``ops/cells.py:spatial_sort_perm``),
   2. fps model stage 1: 10-class half-arch semantics + offsets,
   3. host: DBSCAN/PCA/MeanShift instancing of the offset-moved points -> crop
      centroids,
@@ -30,9 +31,11 @@ from scipy.spatial import cKDTree
 
 from toothgroupnetwork_tpu.data.scan_prep import N_SAMPLE, prep_scan_host_tgn
 
-from ..models.tasks import build_tgnet_bdl, build_tgnet_fps, tgnet_fps_config
+from ..models.tasks import (TGNET_BDL_ARCH, build_tgnet_bdl, build_tgnet_fps,
+                            tgnet_fps_config)
 from ..models.tgnet import make_crops
 from ..ops import farthest_point_sample
+from ..ops.cells import spatial_sort_perm
 from ..postprocess.boundary import boundary_sampled_feats
 from ..postprocess.clustering import clustering_points, get_clustering_labels
 from ..postprocess.fusion import disambiguate_arch_labels, merge_boundary_clusters
@@ -87,6 +90,13 @@ class TgnInferencePipeline:
         use_full_fp32()
         self.device = torch.device(device)
         cfg = copy.deepcopy(config) if config else tgnet_fps_config()
+        # super-row candidate attention (ops/cells.py), off by default as in
+        # the JAX package; it needs spatially sorted clouds, so the flag also
+        # turns on the sorts of the sample and of the boundary cloud
+        self._spatial_sort = bool(cfg["model_parameter"].get("cell_attention",
+                                                             False))
+        bdl_arch = dict(bdl_arch or TGNET_BDL_ARCH)
+        bdl_arch.setdefault("cell_attention", self._spatial_sort)
         self.crop_size = cfg["model_parameter"].get("crop_sample_size", 3072)
         self.n_sample = n_sample
         # boundary_sampling_info defaults (train_configs/tgnet_bdl.py)
@@ -133,10 +143,15 @@ class TgnInferencePipeline:
                 reps)[:self.n_sample]
         else:
             sample_idx = farthest_point_sample(src[:, :3], self.n_sample).long()
-        feats_dev = src[sample_idx][None]
         # the host copy of the indices waits for the FPS, so its time is
         # counted here and not in the next phase
-        sampled = bdl_feats[sample_idx.cpu().numpy()]
+        sample_np = sample_idx.cpu().numpy()
+        if self._spatial_sort:
+            perm = spatial_sort_perm(bdl_feats[sample_np, :3])
+            sample_np = sample_np[perm]
+            sample_idx = sample_idx[torch.from_numpy(perm).to(dev)]
+        feats_dev = src[sample_idx][None]
+        sampled = bdl_feats[sample_np]
         t0 = self._t(timings, "mesh_prep", t0)
 
         # ---------------- stage 1 (fps model) ----------------
@@ -165,7 +180,8 @@ class TgnInferencePipeline:
             ins_labels, bdl_feats, sampled,
             bdl_ratio=self.boundary_info["bdl_ratio"],
             num_bdl_points=self.boundary_info["num_of_bdl_points"],
-            num_all_points=self.boundary_info["num_of_all_points"], device=dev)
+            num_all_points=self.boundary_info["num_of_all_points"],
+            spatial_sort=self._spatial_sort, device=dev)
         pseudo_in = pseudo_labels.astype(np.int64) - 1  # -1 = bg
         t0 = self._t(timings, "host_boundary_resample", t0)
 

@@ -6,7 +6,9 @@ Given instance labels on the sampled cloud: label every full-resolution
 vertex by its nearest sampled point, score each vertex's 40-NN label purity
 on a host KD-tree, mark vertices below ``bdl_ratio`` (0.7) as boundary, and
 build a boundary-focused cloud of ``num_bdl_points`` uniformly drawn boundary
-vertices plus an FPS fill of the rest (K1 on ``device``).
+vertices plus an FPS fill of the rest (K1 on ``device``). With
+``spatial_sort`` each of the two blocks is spatially sorted on its own, for
+the cell-attention path.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.spatial import cKDTree
 
+from ..ops.cells import spatial_sort_perm
 from ..pipelines.base import fps_sample_idx
 from .clustering import first_label_ratio
 
@@ -35,11 +38,14 @@ def boundary_sampled_feats(point_labels: np.ndarray, org_feats: np.ndarray,
                            sampled_feats: np.ndarray, bdl_ratio: float = 0.7,
                            num_bdl_points: int = 20000,
                            num_all_points: int = 24000,
-                           rng: np.random.Generator | None = None, *, device):
+                           rng: np.random.Generator | None = None,
+                           spatial_sort: bool = False, *, device):
     """Returns (feats [num_all_points, 6] f32, pseudo_labels [num_all_points],
     n_boundary, nn1_idx [N], nn1_d2 [N]): boundary points first, then the
     FPS fill. ``nn1_idx``/``nn1_d2`` are each vertex's nearest sampled point
-    and its squared distance, reused by the pipeline's final transfer."""
+    and its squared distance, reused by the pipeline's final transfer.
+    ``spatial_sort`` sorts within each block, so the boundary points stay
+    first (the ``[:n_boundary]`` contract)."""
     rng = rng or np.random.default_rng(0)
     k = min(40, sampled_feats.shape[0])
     bd_mask, ps_labels, nn1_idx, nn1_d2 = boundary_purity(
@@ -63,6 +69,14 @@ def boundary_sampled_feats(point_labels: np.ndarray, org_feats: np.ndarray,
                             need - non_bd_feats.shape[0])
         idx = np.concatenate([np.arange(non_bd_feats.shape[0]), reps])
     non_bd_feats, non_bd_labels = non_bd_feats[idx], non_bd_labels[idx]
+
+    if spatial_sort:
+        if bd_feats.shape[0]:
+            o = spatial_sort_perm(bd_feats[:, :3])
+            bd_feats, bd_labels = bd_feats[o], bd_labels[o]
+        if non_bd_feats.shape[0]:
+            o = spatial_sort_perm(non_bd_feats[:, :3])
+            non_bd_feats, non_bd_labels = non_bd_feats[o], non_bd_labels[o]
 
     feats = np.concatenate([bd_feats, non_bd_feats], axis=0)
     labels = np.concatenate([bd_labels, non_bd_labels], axis=0)
