@@ -10,11 +10,17 @@ is no CUDA device or when the port is not beside it. Phases, one line each
   1. environment: the card's name and power limit (nvidia-smi), versions;
   2. build: nvcc compiles csrc/*.cu into build/kernels/ (keyed by a hash);
   3. each hand-written kernel against its plain PyTorch version on the card,
-     at the shapes the inference path gives it, with CUDA-event times (the
-     cell-attention kernels K4/K5/K6 on a spatially sorted 24000-point sheet);
+     at the shapes the inference path gives it, with CUDA-event times, the
+     least time the card could take for the same work (the larger of the
+     bytes over 3.35 TB/s and the operations over 67 TFLOP/s, float32) and,
+     where one PyTorch call computes the same function, that call's time
+     (the cell-attention kernels K4/K5/K6 on a spatially sorted 24000-point
+     sheet; K7 and K8 at the crop and full-cloud shapes; the bfloat16
+     variants of K3, K4 and K6 against their bfloat16 twins);
   4. full-width fps model, stage 1 over a 24000-point cloud: the kernels on
-     the card against the same port on the CPU (plain versions), once on the
-     default path and once with ``cell_attention`` on the sorted cloud;
+     the card against the same port on the CPU (plain versions), on the
+     default path, with ``cell_attention`` on the sorted cloud, and in
+     bfloat16 (and bfloat16 against float32 on the card);
   5. the slice: random full-width fps + bdl weights (``save_npz``), three
      synthetic ~100k-vertex scans through ``cli.infer.main`` on the card,
      challenge JSON checked, a repeated scan identical, every kernel of the
@@ -22,7 +28,15 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      torch.profiler gives the device's busy share;
   6. the cell-attention configuration: one more scan through ``cli.infer.main
      --config_path`` with ``"cell_attention": true``, the same checks, K4, K5
-     and K6 launched; then steady calls of both configurations in turns.
+     and K6 launched;
+  7. the bfloat16 configuration: one more scan through ``cli.infer.main
+     --config_path`` with ``"dtype": "bfloat16"``, the same checks, K1, K2
+     and K3 launched and none of K4-K6; then steady calls of the three
+     configurations in turns;
+  8. the two entries no model layer calls (as in the JAX package): the
+     row gather K8 through ``ops.gather.gather_neighbors`` under
+     ``TGN_TPU_GATHER=mxu`` and the pre-projected attention K7 through its
+     wrapper, each launched and checked.
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -32,6 +46,7 @@ JSON line of the kernels, the nvidia-smi line again, and last the line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -61,9 +76,16 @@ ATTENTION_SHAPES = ((1, 24000, 36, 32),         # B, N, K, C
 # stride-1 stage (fps stage 1; bdl stages 1 and 2), 32 candidate slots (L8=256)
 CELL_SHAPES = ((36, 32), (36, 16), (24, 32))
 CELL_SLOTS = 32
+# the row gather and the pre-projected attention: the crop stage and the
+# full cloud (B, N, K, C)
+ENTRY_SHAPES = ((16, 3072, 36, 32), (1, 24000, 36, 32))
 N_POINTS = 24000          # the fps model's input cloud
 N_SIDE = 317              # synthetic scans of 317^2 = 100489 vertices
 CARD = {"card": None}     # the nvidia-smi line, beside every number logged
+# published H100 SXM peaks (on-chip-measurement guide): float32 outside the
+# tensor cores (every kernel here computes in float32) and HBM bandwidth
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(phase: str, **fields) -> None:
@@ -97,23 +119,86 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (dicts of tensors counted by their values)."""
+    total = 0
+    for t in tensors:
+        for v in (t.values() if isinstance(t, dict) else (t,)):
+            total += v.numel() * v.element_size()
+    return total
+
+
+def referenced_bytes(src: torch.Tensor, rows: torch.Tensor) -> int:
+    """Bytes of the rows of ``src`` (viewed as [R, ...]) that the flat row
+    indices ``rows`` reference, each counted once: what a gather of this
+    run's data must read."""
+    return int(torch.unique(rows).numel()) * (src.numel() // src.shape[0]
+                                              * src.element_size())
+
+
+def cell_rows(pos: torch.Tensor, l8: int) -> torch.Tensor:
+    """Flat candidate-block rows ``q // 8 * L8 + pos`` that K4/K5 read
+    (positions outside [0, L8) read nothing)."""
+    hit = (pos >= 0) & (pos < l8)
+    q = torch.arange(pos.shape[0], device=pos.device)[:, None] // 8
+    return (q * l8 + pos)[hit]
+
+
+def attention_ops(rows: int, c: int, cs: int) -> int:
+    """Float32 operations of the attention layer after the k/v projection,
+    per neighbour row: pe (Dense 3x3 + relu, Dense 3xC) 21 + 7C, k - q + pe
+    2C, BN0 + relu 3C, Dense Cxcs 2C cs + cs, BN1 + relu 3cs, Dense csxcs
+    2cs^2 + cs, softmax 3cs, v + pe C, the weighted sum 2C."""
+    return rows * (15 * c + 2 * c * cs + 2 * cs * cs + 8 * cs + 21)
+
+
 class KernelRecord:
-    """Per-kernel results over the phase-3 shapes."""
+    """Per-kernel results over the phase-3 shapes: times, the bound from
+    this run's inputs, and the one-call library time where there is one."""
 
     def __init__(self, name, source, replaces):
         self.entry = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
-                      "ms": 0.0, "plain_ms": 0.0, "shapes": []}
+                      "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "bound_by": None, "library_ms": None, "shapes": []}
+        self._top_bound = -1.0
 
-    def add(self, shape: str, err: float, ms: float, plain_ms: float, **extra):
+    def add(self, shape: str, err: float, ms: float, plain_ms: float, *,
+            ops: float, moved: float, library_ms: float | None = None, **extra):
+        """``ops`` float32 operations and ``moved`` bytes (each input read
+        once, each output written once) of this call."""
         e = self.entry
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
         e["ms"] += ms
         e["plain_ms"] += plain_ms
+        e["bound_ms"] += bound_ms
+        if bound_ms > self._top_bound:   # what binds the largest call
+            self._top_bound, e["bound_by"] = bound_ms, bound_by
+        if library_ms is not None:
+            e["library_ms"] = (e["library_ms"] or 0.0) + library_ms
         e["shapes"].append({"shape": shape, "max_abs_err": float(err), "ms": ms,
-                            "plain_ms": plain_ms, **extra})
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms,
+                            "ops": ops, "bytes": moved, **extra})
         log("kernel", name=e["name"], shape=shape, max_abs_err=float(err),
-            ms=ms, plain_ms=plain_ms, **extra)
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, **extra)
+
+
+def bf16_ulps(got, ref, atol: float = 1e-4):
+    """(ok, share of elements more than one bf16 ulp apart): ok when every
+    |got - ref| <= one bf16 ulp (8 significant bits) at max(|got|, |ref|)
+    + atol. Two float32 results within atol round to bf16 values at most
+    that far apart; near zero, where a sum cancels, atol is many ulps."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got - ref).abs()
+    return bool((diff <= ulp + atol).all()), float((diff > ulp).float().mean())
 
 
 def phase_kernels(dev, gen):
@@ -135,7 +220,9 @@ def phase_kernels(dev, gen):
         "attention", "toothgroupnetwork_tpu_torch/csrc/attention.cu",
         "toothgroupnetwork_tpu/ops/pallas/attention_kernel.py:346")
 
-    # K1: identical indices on tie-free (continuous random) inputs
+    # K1: identical indices on tie-free (continuous random) inputs. Each of
+    # the m steps updates the running minimum of every valid point: 3 sub,
+    # 3 mul, 2 add, 1 min and 1 compare
     for b, n, m, n_valid in FPS_SHAPES:
         xyz = cloud(b, n, 3)
         valid = None
@@ -151,9 +238,12 @@ def phase_kernels(dev, gen):
         err = float((got.long() - ref.long()).abs().max())
         rec_fps.add(f"[{b},{n}]->{m}" + (f" valid {n_valid}" if n_valid else ""),
                     err, cuda_ms(lambda: fps.fps(xyz, m, valid), 3),
-                    cuda_ms(lambda: fps.fps_reference(xyz, m, valid), 1))
+                    cuda_ms(lambda: fps.fps_reference(xyz, m, valid), 1),
+                    ops=10.0 * b * m * (n_valid or n),
+                    moved=nbytes(xyz, got) + (0 if valid is None else nbytes(valid)))
 
-    # K2: identical except rows with a near-tie at the k-th place
+    # K2: identical except rows with a near-tie at the k-th place. Each
+    # (query, point) pair: 3 sub, 3 mul, 2 add and 1 compare
     for b, m, n, k, self_q in KNN_SHAPES:
         pts = cloud(b, n, 3)
         qry = pts if self_q else cloud(b, m, 3)
@@ -171,34 +261,48 @@ def phase_kernels(dev, gen):
         rec_knn.add(f"[{b},{m}]x[{b},{n}] k={k}", err,
                     cuda_ms(lambda: knn.knn_select(qry, pts, k), 3),
                     cuda_ms(lambda: knn.knn_select_reference(qry, pts, k), 1),
+                    ops=9.0 * b * m * n,
+                    moved=nbytes(pts, gi, gd) + (0 if self_q else nbytes(qry)),
                     rows_differ=int(row_bad.sum()),
                     near_tie_rows=int(near_tie.sum()))
 
-    # K3: max |kernel - plain| <= 1e-4 (float32, other summation order)
-    for b, n, kk, c in ATTENTION_SHAPES:
-        layer = PointTransformerLayer(c, device=dev)
-        randomize_(layer, torch.Generator().manual_seed(c))
-        p = cloud(b, n, 3, scale=0.2)
-        x = cloud(b, n, c, scale=0.5)
-        idx, _ = knn_self(p, kk)
-        with torch.no_grad():
-            params = attention.fold_attention_params(layer)
-            q = layer.linear_q(x).reshape(b * n, c).contiguous()
-            got = attention.fused_vector_attention_packed_x(x, p, idx, q, params)
-            ref = attention.fused_vector_attention_packed_x_reference(
-                x, p, idx, q, params)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            if not err <= 1e-4:
-                raise AssertionError(f"K3 attention B{b}/N{n}/K{kk}/C{c}: "
-                                     f"max abs diff {err}")
-            rec_att.add(f"B{b}/N{n}/K{kk}/C{c}", err,
-                        cuda_ms(lambda: attention.fused_vector_attention_packed_x(
-                            x, p, idx, q, params), 5),
-                        cuda_ms(lambda: attention
-                                .fused_vector_attention_packed_x_reference(
-                                    x, p, idx, q, params), 3))
-    return [rec_fps, rec_knn, rec_att] + phase_cell_kernels(dev, gen, cloud)
+    # K3: max |kernel - plain| <= 1e-4 in float32 (other summation order);
+    # in bfloat16 (bf16 rows, q and out) within one bf16 ulp of the output.
+    # The k/v projection commutes with the gather: counted once per point
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, kk, c in ATTENTION_SHAPES:
+            layer = PointTransformerLayer(c, device=dev)
+            randomize_(layer, torch.Generator().manual_seed(c))
+            p = cloud(b, n, 3, scale=0.2)
+            x = cloud(b, n, c, scale=0.5).to(dtype)
+            idx, _ = knn_self(p, kk)
+            with torch.no_grad():
+                params = attention.fold_attention_params(layer, dtype)
+                q = layer.linear_q(x.float()).reshape(b * n, c).to(dtype).contiguous()
+                got = attention.fused_vector_attention_packed_x(x, p, idx, q, params)
+                ref = attention.fused_vector_attention_packed_x_reference(
+                    x, p, idx, q, params)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                extra = {}
+                if dtype == torch.float32:
+                    ok = err <= 1e-4
+                else:
+                    ok, extra["share_beyond_one_ulp"] = bf16_ulps(got, ref)
+                if not ok:
+                    raise AssertionError(f"K3 attention {dtype} B{b}/N{n}/K{kk}/C{c}: "
+                                         f"max abs diff {err}")
+                tag = " bf16" if dtype != torch.float32 else ""
+                rec_att.add(
+                    f"B{b}/N{n}/K{kk}/C{c}{tag}", err,
+                    cuda_ms(lambda: attention.fused_vector_attention_packed_x(
+                        x, p, idx, q, params), 5),
+                    cuda_ms(lambda: attention.fused_vector_attention_packed_x_reference(
+                        x, p, idx, q, params), 3),
+                    ops=attention_ops(b * n * kk, c, c // 8) + 4.0 * b * n * c * c,
+                    moved=nbytes(x, p, idx, q, got, params), **extra)
+    return ([rec_fps, rec_knn, rec_att] + phase_cell_kernels(dev, gen, cloud)
+            + phase_entry_kernels(dev, gen, cloud))
 
 
 def sorted_sheet(gen, n: int) -> np.ndarray:
@@ -213,7 +317,8 @@ def sorted_sheet(gen, n: int) -> np.ndarray:
 
 def phase_cell_kernels(dev, gen, cloud):
     """K4/K5 bit-equal and K6 within 1e-4 of their plain versions, at the
-    shapes of the cell path on a 24000-point stride-1 stage."""
+    shapes of the cell path on a 24000-point stride-1 stage, in float32 and
+    (K4, K6) on bfloat16 rows."""
     from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
         PointTransformerLayer)
     from toothgroupnetwork_tpu_torch.ops import cells, knn_self
@@ -250,44 +355,179 @@ def phase_cell_kernels(dev, gen, cloud):
         raise AssertionError("K5 cell_select_p differs from its plain version")
     rec_p.add(f"N{n}/K36/L8={l8}", 0.0,
               cuda_ms(lambda: cell_select.cell_select_p(blk_p, pos, p), 20),
-              cuda_ms(lambda: cell_select.cell_select_p_reference(blk_p, pos, p), 5))
+              cuda_ms(lambda: cell_select.cell_select_p_reference(blk_p, pos, p), 5),
+              ops=float(got.numel()),
+              moved=referenced_bytes(blk_p.reshape(-1, 3), cell_rows(pos, l8))
+              + nbytes(pos, p, got))
     p_r36 = got
 
-    for kk, c in CELL_SHAPES:
-        cand, pos = ctx[kk]
-        x = cloud(n, c, scale=0.5)
-        blk_x = cells.gather_candidate_blocks(x, cand)
-        got = cell_select.cell_select_x(blk_x, pos)
-        ref = cell_select.cell_select_x_reference(blk_x, pos)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K4 cell_select_x K{kk}/C{c} differs")
-        rec_x.add(f"N{n}/K{kk}/C{c}/L8={l8}", 0.0,
-                  cuda_ms(lambda: cell_select.cell_select_x(blk_x, pos), 20),
-                  cuda_ms(lambda: cell_select.cell_select_x_reference(blk_x, pos), 5),
-                  blk_mb=blk_x.numel() * 4 / 1e6, x_g_mb=got.numel() * 4 / 1e6)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = " bf16" if dtype != torch.float32 else ""
+        for kk, c in CELL_SHAPES:
+            cand, pos = ctx[kk]
+            x = cloud(n, c, scale=0.5)
+            blk_x = cells.gather_candidate_blocks(x.to(dtype), cand)
+            got = cell_select.cell_select_x(blk_x, pos)
+            ref = cell_select.cell_select_x_reference(blk_x, pos)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 cell_select_x K{kk}/C{c}{tag} differs")
+            rec_x.add(f"N{n}/K{kk}/C{c}/L8={l8}{tag}", 0.0,
+                      cuda_ms(lambda: cell_select.cell_select_x(blk_x, pos), 20),
+                      cuda_ms(lambda: cell_select.cell_select_x_reference(blk_x,
+                                                                          pos), 5),
+                      ops=0.0, moved=referenced_bytes(blk_x.reshape(-1, c),
+                                                      cell_rows(pos, l8))
+                      + nbytes(pos, got),
+                      blk_mb=nbytes(blk_x) / 1e6, x_g_mb=nbytes(got) / 1e6)
 
+            # K6: float32 q, weights and out; rows and p_r in the dtype
+            layer = PointTransformerLayer(c, device=dev)
+            randomize_(layer, torch.Generator().manual_seed(c))
+            x_g = got.reshape(n * kk, c)
+            p_r = p_r36[:, :kk].reshape(n * kk, 3).to(dtype).contiguous()
+            with torch.no_grad():
+                params = attention.fold_attention_params(layer, dtype)
+                q = layer.linear_q(x).contiguous()
+                out = attention.fused_vector_attention(q, x_g, p_r, params, k=kk)
+                ref = attention.fused_vector_attention_reference(q, x_g, p_r, params,
+                                                                 k=kk)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                if not err <= 1e-4:
+                    raise AssertionError(f"K6 attention B1/N{n}/K{kk}/C{c}{tag}: "
+                                         f"max abs diff {err}")
+                rec_g.add(f"B1/N{n}/K{kk}/C{c}{tag}", err,
+                          cuda_ms(lambda: attention.fused_vector_attention(
+                              q, x_g, p_r, params, k=kk), 5),
+                          cuda_ms(lambda: attention.fused_vector_attention_reference(
+                              q, x_g, p_r, params, k=kk), 3),
+                          ops=attention_ops(n * kk, c, c // 8) + 4.0 * n * kk * c * c,
+                          moved=nbytes(x_g, p_r, q, out, params))
+    return [rec_x, rec_p, rec_g]
+
+
+def phase_entry_kernels(dev, gen, cloud):
+    """K7 (pre-projected attention) within 1e-4 and K8 (row gather, float32
+    and bfloat16) identical to their plain versions at ENTRY_SHAPES; K8
+    beside ``torch.index_select`` on the flat index, the one PyTorch call
+    that computes the same function."""
+    from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+        PointTransformerLayer)
+    from toothgroupnetwork_tpu_torch.ops.kernels import attention, gather
+    from toothgroupnetwork_tpu_torch.utils.weights import randomize_
+
+    src = "toothgroupnetwork_tpu_torch/csrc/"
+    rec_k7 = KernelRecord("attention_projected", src + "attention.cu",
+                          "toothgroupnetwork_tpu/ops/pallas/attention_kernel.py:302")
+    rec_k8 = KernelRecord("gather", src + "gather.cu",
+                          "toothgroupnetwork_tpu/ops/pallas/gather_kernel.py:64")
+    for b, n, kk, c in ENTRY_SHAPES:
         layer = PointTransformerLayer(c, device=dev)
         randomize_(layer, torch.Generator().manual_seed(c))
-        x_g = got.reshape(n * kk, c)
-        p_r = p_r36[:, :kk].reshape(n * kk, 3).contiguous()
+        rows = b * n * kk
+        k_g, v_g = cloud(rows, c, scale=0.5), cloud(rows, c, scale=0.5)
+        p_r, q = cloud(rows, 3, scale=0.05), cloud(b * n, c, scale=0.5)
         with torch.no_grad():
             params = attention.fold_attention_params(layer)
-            q = layer.linear_q(x).contiguous()
-            out = attention.fused_vector_attention(q, x_g, p_r, params, k=kk)
-            ref = attention.fused_vector_attention_reference(q, x_g, p_r, params,
-                                                             k=kk)
+            got = attention.fused_vector_attention_packed(q, k_g, v_g, p_r, params,
+                                                          k=kk)
+            ref = attention.fused_vector_attention_packed_reference(
+                q, k_g, v_g, p_r, params, k=kk)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
+            err = float((got - ref).abs().max())
             if not err <= 1e-4:
-                raise AssertionError(f"K6 attention B1/N{n}/K{kk}/C{c}: "
+                raise AssertionError(f"K7 attention B{b}/N{n}/K{kk}/C{c}: "
                                      f"max abs diff {err}")
-            rec_g.add(f"B1/N{n}/K{kk}/C{c}", err,
-                      cuda_ms(lambda: attention.fused_vector_attention(
-                          q, x_g, p_r, params, k=kk), 5),
-                      cuda_ms(lambda: attention.fused_vector_attention_reference(
-                          q, x_g, p_r, params, k=kk), 3))
-    return [rec_x, rec_p, rec_g]
+            kv_free = {k: v for k, v in params.items() if k not in ("wk", "bk", "wv",
+                                                                    "bv")}
+            rec_k7.add(f"B{b}/N{n}/K{kk}/C{c}", err,
+                       cuda_ms(lambda: attention.fused_vector_attention_packed(
+                           q, k_g, v_g, p_r, params, k=kk), 5),
+                       cuda_ms(lambda: attention
+                               .fused_vector_attention_packed_reference(
+                                   q, k_g, v_g, p_r, params, k=kk), 3),
+                       ops=attention_ops(rows, c, c // 8),
+                       moved=nbytes(q, k_g, v_g, p_r, got, kv_free))
+        del k_g, v_g, p_r
+
+        idx = torch.from_numpy(gen.integers(0, n, (b, n, kk)).astype(np.int32)).to(dev)
+        flat = (idx.long() + torch.arange(b, device=dev)[:, None, None] * n).reshape(-1)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = cloud(b, n, c).to(dtype)
+            got = gather.onehot_gather_packed(x, idx)
+            ref = gather.onehot_gather_packed_reference(x, idx)
+            lib = torch.index_select(x.reshape(b * n, c), 0, flat)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, ref) and torch.equal(got.reshape(-1, c), lib)):
+                raise AssertionError(f"K8 gather {dtype} B{b}/N{n}/K{kk}/C{c} differs")
+            tag = " bf16" if dtype == torch.bfloat16 else ""
+            rec_k8.add(f"B{b}/N{n}/K{kk}/C{c}{tag}", 0.0,
+                       cuda_ms(lambda: gather.onehot_gather_packed(x, idx), 20),
+                       cuda_ms(lambda: gather.onehot_gather_packed_reference(x, idx),
+                               5),
+                       ops=0.0, moved=referenced_bytes(x.reshape(-1, c), flat)
+                       + nbytes(idx, got),
+                       library_ms=cuda_ms(lambda: torch.index_select(
+                           x.reshape(b * n, c), 0, flat), 20))
+    return [rec_k7, rec_k8]
+
+
+def phase_entries(dev, feats: np.ndarray):
+    """The two entries no model layer calls, each driven once with its
+    counter set to 0 just before: ``gather_neighbors`` under
+    ``TGN_TPU_GATHER=mxu`` (K8) on 16 crops of a scan (3072 points each,
+    their 6 feature channels zero-padded to a C32 layer's width, bf16) and
+    their 36-NN, and the pre-projected attention (K7) on the k/v rows that
+    a bf16 layer projects from the gathered rows. Returns the launch
+    counts."""
+    from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+        PointTransformerLayer)
+    from toothgroupnetwork_tpu_torch.models.tgnet import make_crops
+    from toothgroupnetwork_tpu_torch.ops import index_points, knn_self
+    from toothgroupnetwork_tpu_torch.ops.gather import gather_neighbors
+    from toothgroupnetwork_tpu_torch.ops.kernels import attention, gather
+    from toothgroupnetwork_tpu_torch.utils.weights import randomize_
+
+    b, n, kk, c = ENTRY_SHAPES[0]
+    src = torch.from_numpy(feats).to(dev)[None]
+    cents = src[:, torch.linspace(0, feats.shape[0] - 1, b).long(), :3]
+    crops, _, _ = make_crops(src, cents, torch.ones((1, b), dtype=torch.bool,
+                                                    device=dev), n)
+    idx, _ = knn_self(crops[..., :3].contiguous(), kk)
+    layer = PointTransformerLayer(c, device=dev, dtype=torch.bfloat16)
+    randomize_(layer, torch.Generator().manual_seed(3))
+    x = torch.nn.functional.pad(crops, (0, c - crops.shape[-1])).bfloat16()
+    kernels = (gather.onehot_gather_packed, attention.fused_vector_attention_packed)
+    for k in kernels:
+        k.launches = 0
+    os.environ["TGN_TPU_GATHER"] = "mxu"
+    try:
+        with torch.no_grad():
+            x_g = gather_neighbors(x, idx)
+            k_g = layer.linear_k(x_g).reshape(b * n * kk, c)
+            v_g = layer.linear_v(x_g).reshape(b * n * kk, c)
+            p_r = (index_points(crops[..., :3], idx) - crops[:, :, None, :3])
+            p_r = p_r.reshape(-1, 3).bfloat16()
+            q = layer.linear_q(x).reshape(b * n, c)
+            params = attention.fold_attention_params(layer, torch.bfloat16)
+            out = attention.fused_vector_attention_packed(q, k_g, v_g, p_r, params,
+                                                          k=kk)
+    finally:
+        del os.environ["TGN_TPU_GATHER"]
+    launches = {k.__name__: k.launches for k in kernels}
+    torch.cuda.synchronize()
+    same = torch.equal(x_g, index_points(x, idx))
+    with torch.no_grad():
+        ref = attention.fused_vector_attention_packed_reference(q, k_g, v_g, p_r,
+                                                                params, k=kk)
+    err = float((out - ref).abs().max())
+    log("entries", crops=b, points=n, k=kk, c=c, dtype="bfloat16",
+        gather_identical=same, attention_max_abs_err=err, launches=launches)
+    if not same or not err <= 1e-4 or not all(launches.values()):
+        raise AssertionError(f"entries: gather identical {same}, attention err "
+                             f"{err}, launches {launches}")
+    return launches
 
 
 def make_weights(work: Path):
@@ -326,11 +566,15 @@ def vertex_feats(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
     return np.concatenate([xyz, nrm], axis=1).astype(np.float32)
 
 
-def phase_model(dev, ckpt: Path, feats: np.ndarray, cell: bool = False):
+def phase_model(dev, ckpt: Path, feats: np.ndarray, cell: bool = False,
+                dtype: str = "float32"):
     """Stage 1 of the full-width fps model on the card (kernels) against the
     CPU (plain versions), on N_POINTS FPS points of a scan's vertices; with
     ``cell`` the points are spatially sorted and the model runs the
-    cell-attention path (K4/K5/K6 must launch on the card)."""
+    cell-attention path (K4/K5/K6 must launch on the card); ``dtype`` is
+    the model's compute dtype. Argmax agreement must reach 0.999 in float32
+    and 0.97 in bfloat16 (the two devices round bf16 sums taken in other
+    orders). Returns the card's outputs."""
     from toothgroupnetwork_tpu_torch.models.tasks import (build_tgnet_fps,
                                                           tgnet_fps_config)
     from toothgroupnetwork_tpu_torch.ops import farthest_point_sample
@@ -345,7 +589,7 @@ def phase_model(dev, ckpt: Path, feats: np.ndarray, cell: bool = False):
         idx = idx[torch.from_numpy(perm).to(dev)]
     feat = src[idx][None]
     cfg = tgnet_fps_config()
-    cfg["model_parameter"]["cell_attention"] = cell
+    cfg["model_parameter"].update(cell_attention=cell, dtype=dtype)
     cell_kernels = (cell_select.cell_select_x, cell_select.cell_select_p,
                     attention.fused_vector_attention)
     outs = {}
@@ -374,11 +618,13 @@ def phase_model(dev, ckpt: Path, feats: np.ndarray, cell: bool = False):
     d_off = float((gpu["offset_1"] - cpu["offset_1"]).abs().max())
     d_sem = float((gpu["sem_1"] - cpu["sem_1"]).abs().max())
     log("model", what=f"fps stage1 {N_POINTS} pts, card vs CPU port",
-        cell_attention=cell, argmax_agreement=agree, max_abs_doffset=d_off,
-        max_abs_dlogit=d_sem, first_call_s_cuda=t_gpu, s_cpu=t_cpu,
-        cell_launches=launched)
-    if agree < 0.999:
-        raise AssertionError(f"stage1 argmax agreement {agree} < 0.999")
+        cell_attention=cell, dtype=dtype, argmax_agreement=agree,
+        max_abs_doffset=d_off, max_abs_dlogit=d_sem, first_call_s_cuda=t_gpu,
+        s_cpu=t_cpu, cell_launches=launched)
+    floor = 0.999 if dtype == "float32" else 0.97
+    if agree < floor:
+        raise AssertionError(f"stage1 {dtype} argmax agreement {agree} < {floor}")
+    return gpu
 
 
 def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
@@ -440,12 +686,12 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
 
 
 def phase_ab(pipes: dict, scan: Path, rounds: int = 2) -> None:
-    """Steady calls of the default and the cell-attention pipeline on one
-    scan, in turns (default, cell, cell, default per round): wall and
-    per-phase seconds of each call, so the two configurations are compared
-    on one card within one run."""
+    """Steady calls of the configurations' pipelines on one scan, in turns
+    (in order, then in reverse, per round: default, cell, bf16, bf16, cell,
+    default): wall and per-phase seconds of each call, so the
+    configurations are compared on one card within one run."""
     samples = {name: [] for name in pipes}
-    for name in ("default", "cell", "cell", "default") * rounds:
+    for name in (list(pipes) + list(pipes)[::-1]) * rounds:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipes[name](str(scan))
@@ -506,7 +752,8 @@ def main() -> int:
 
     from toothgroupnetwork_tpu_torch.models.tasks import tgnet_fps_config
     from toothgroupnetwork_tpu_torch.ops.kernels import (attention, build,
-                                                         cell_select, fps, knn)
+                                                         cell_select, fps, gather,
+                                                         knn)
     from toothgroupnetwork_tpu_torch.pipelines.tgn import use_full_fp32
 
     use_full_fp32()
@@ -540,32 +787,49 @@ def main() -> int:
         log("setup", weights=[p.name for p in ckpts.values()],
             scans=[p.name for p in scans])
         feats0 = vertex_feats(*meshes[0])
-        phase_model(dev, ckpts["fps"], feats0)
+        f32_out = phase_model(dev, ckpts["fps"], feats0)
         phase_model(dev, ckpts["fps"], feats0, cell=True)
+        bf16_out = phase_model(dev, ckpts["fps"], feats0, dtype="bfloat16")
+        log("model", what="fps stage1 bfloat16 vs float32, both on the card",
+            argmax_agreement=float((bf16_out["sem_1"].argmax(-1)
+                                    == f32_out["sem_1"].argmax(-1)).float().mean()),
+            max_abs_dlogit=float((bf16_out["sem_1"] - f32_out["sem_1"]).abs().max()),
+            max_abs_doffset=float((bf16_out["offset_1"]
+                                   - f32_out["offset_1"]).abs().max()))
         base = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x)
         cell = (cell_select.cell_select_x, cell_select.cell_select_p,
                 attention.fused_vector_attention)
-        launches, pipe = phase_slice(dev, ckpts, scans, work / "out", base, cell)
+        entry = (attention.fused_vector_attention_packed, gather.onehot_gather_packed)
+        launches, pipe = phase_slice(dev, ckpts, scans, work / "out", base,
+                                     cell + entry)
 
-        # the cell-attention configuration through --config_path
-        cell_dir = work / "scans_cell"
-        cell_dir.mkdir()
-        cell_scan = cell_dir / scans[0].name
-        cell_scan.write_bytes(scans[0].read_bytes())
-        cfg = tgnet_fps_config()
-        cfg["model_parameter"]["cell_attention"] = True
-        cfg_path = work / "cell_config.json"
-        cfg_path.write_text(json.dumps(cfg))
-        cell_launches, cell_pipe = phase_slice(
-            dev, ckpts, [cell_scan], work / "out_cell", base + cell,
-            config=cfg_path, what="cell_slice")
-        phase_ab({"default": pipe, "cell": cell_pipe}, scans[0])
+        # the cell-attention and the bfloat16 configurations through
+        # --config_path, one scan each
+        pipes = {"default": pipe}
+        slice_launches = {}
+        for name, params, kernels, unused in (
+                ("cell", {"cell_attention": True}, base + cell, entry),
+                ("bf16", {"dtype": "bfloat16"}, base, cell + entry)):
+            one_dir = work / f"scans_{name}"
+            one_dir.mkdir()
+            (one_dir / scans[0].name).write_bytes(scans[0].read_bytes())
+            cfg = tgnet_fps_config()
+            cfg["model_parameter"].update(params)
+            cfg_path = work / f"{name}_config.json"
+            cfg_path.write_text(json.dumps(cfg))
+            slice_launches[name], pipes[name] = phase_slice(
+                dev, ckpts, [one_dir / scans[0].name], work / f"out_{name}",
+                kernels, unused, config=cfg_path, what=f"{name}_slice")
+        phase_ab(pipes, scans[0])
+        entry_launches = phase_entries(dev, feats0)
 
     # each kernel's count from the run of its own path: K1-K3 from the
-    # default slice, K4-K6 from the cell-attention slice
-    for rec, k in zip(records, base + cell):
+    # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
+    # entries that call them
+    for rec, k in zip(records, base + cell + entry):
         name = k.__name__
-        rec.entry["launches"] = (launches if k in base else cell_launches)[name]
+        rec.entry["launches"] = (launches if k in base else slice_launches["cell"]
+                                 if k in cell else entry_launches)[name]
     print(json.dumps({"kernels": [r.entry for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

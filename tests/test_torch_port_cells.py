@@ -274,6 +274,38 @@ class TestCellBackbone:
         assert calls == {"x": 0, "p": 0, "k6": 0, "k3": 5}
 
 
+    def test_cells_off_switch_takes_k3(self, rng, monkeypatch):
+        """``TGN_TPU_CELLS=off`` (the JAX package's switch, backbone.py:421):
+        the cell configuration runs K3 on every layer, none of K4/K5/K6, and
+        gives the default path's outputs."""
+        calls = {"x": 0, "p": 0, "k6": 0, "k3": 0}
+        for name, key in (("cell_select_x", "x"), ("cell_select_p", "p"),
+                          ("fused_vector_attention", "k6"),
+                          ("fused_vector_attention_packed_x", "k3")):
+            fn = getattr(backbone, name)
+
+            def wrapped(*a, _fn=fn, _key=key, **k):
+                calls[_key] += 1
+                return _fn(*a, **k)
+
+            monkeypatch.setattr(backbone, name, wrapped)
+        arch = dict(planes=(8, 16), stride=(1, 1), nsample=(12, 8), blocks=(2, 3),
+                    block_num=2)
+        feat = _t(np.concatenate([_surface(rng, 256, 64),
+                                  np.zeros((256, 3), np.float32)], 1)[None])
+        plain = PointTransformerSeg(k=10, **arch, device="cpu").eval()
+        cell = PointTransformerSeg(k=10, **arch, cell_attention=True,
+                                   device="cpu").eval()
+        cell.load_state_dict(plain.state_dict())
+        monkeypatch.setenv("TGN_TPU_CELLS", "off")
+        with torch.no_grad():
+            got = cell(feat)
+            assert calls == {"x": 0, "p": 0, "k6": 0, "k3": 5}
+            want = plain(feat)
+        for key in ("sem_1", "offset_1"):
+            assert torch.equal(got[key], want[key]), key
+
+
 def test_stage2_ignores_the_flag(rng):
     """The crop half runs 16 crops at once (B != 1): the flag changes
     nothing there."""

@@ -17,7 +17,7 @@ from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
     PointTransformerLayer)
 from toothgroupnetwork_tpu_torch.ops import cells, knn_self
 from toothgroupnetwork_tpu_torch.ops.kernels import (attention, cell_select, fps,
-                                                     knn)
+                                                     gather, knn)
 from toothgroupnetwork_tpu_torch.utils.weights import randomize_
 
 
@@ -35,6 +35,17 @@ def gen():
 
 def _cloud(gen, *shape, device):
     return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(device)
+
+
+def _within_one_bf16_ulp(got, ref, atol: float = 1e-4) -> bool:
+    """|got - ref| <= one bf16 ulp (8 significant bits) at max(|got|, |ref|)
+    + atol: two float32 results within atol (the kernels' float32
+    tolerance) round to bf16 values at most that far apart; near zero,
+    where a sum cancels, atol is many ulps."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got - ref).abs() <= ulp + atol).all())
 
 
 @pytest.mark.cuda
@@ -99,6 +110,75 @@ class TestKernelsOnCard:
         assert (got - ref).abs().max().item() <= 1e-4
 
 
+    @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 93, 24, 512),
+                                          (2, 64, 36, 512)])
+    def test_attention_bf16(self, cuda_device, gen, b, n, kk, c):
+        """K3 on bf16 x and q (bf16 out) within one bf16 ulp (+ 1e-4) of its
+        twin."""
+        port = PointTransformerLayer(c, device=cuda_device)
+        randomize_(port, torch.Generator().manual_seed(0))
+        p = _cloud(gen, b, n, 3, device=cuda_device) * 0.2
+        x = (_cloud(gen, b, n, c, device=cuda_device) * 0.2).bfloat16()
+        idx = torch.from_numpy(gen.integers(0, n, (b, n, kk)).astype(np.int32)
+                               ).to(cuda_device)
+        with torch.no_grad():
+            params = attention.fold_attention_params(port, torch.bfloat16)
+            q = port.linear_q(x.float()).reshape(-1, c).bfloat16().contiguous()
+            got = attention.fused_vector_attention_packed_x(x, p, idx, q, params)
+            ref = attention.fused_vector_attention_packed_x_reference(
+                x, p, idx, q, params)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and _within_one_bf16_ulp(got, ref)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 93, 24, 512),
+                                          (2, 64, 36, 512), (2, 100, 13, 16)])
+    def test_pre_projected_attention(self, cuda_device, gen, b, n, kk, c, dtype):
+        """K7 within 1e-4 of its twin (float32 out) on rows of either dtype."""
+        port = PointTransformerLayer(c, device=cuda_device)
+        randomize_(port, torch.Generator().manual_seed(0))
+        rows = b * n * kk
+        k_g, v_g = (_cloud(gen, rows, c, device=cuda_device).to(dtype)
+                    for _ in range(2))
+        p_r = (_cloud(gen, rows, 3, device=cuda_device) * 0.2).to(dtype)
+        q = _cloud(gen, b * n, c, device=cuda_device).to(dtype)
+        with torch.no_grad():
+            params = attention.fold_attention_params(port)
+            got = attention.fused_vector_attention_packed(q, k_g, v_g, p_r, params,
+                                                          k=kk)
+            ref = attention.fused_vector_attention_packed_reference(
+                q, k_g, v_g, p_r, params, k=kk)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert (got - ref).abs().max().item() <= 1e-4
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,n,m,kk,c", [(2, 200, 57, 9, 32),
+                                            (16, 3072, 300, 36, 32),
+                                            (1, 500, 100, 36, 3), (2, 64, 10, 4, 16),
+                                            (1, 300, 50, 5, 12)])
+    def test_row_gather(self, cuda_device, gen, b, n, m, kk, c, dtype):
+        """K8 bit-equal to its twin (16-byte units and the narrower ones of
+        rows that are not a multiple of 16 bytes)."""
+        x = _cloud(gen, b, n, c, device=cuda_device).to(dtype)
+        idx = torch.from_numpy(gen.integers(0, n, (b, m, kk)).astype(np.int32)
+                               ).to(cuda_device)
+        got = gather.onehot_gather_packed(x, idx)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got, gather.onehot_gather_packed_reference(x, idx))
+        assert torch.equal(gather.onehot_gather(x, idx), got.reshape(b, m, kk, c))
+
+    def test_other_dtypes_raise(self, cuda_device, gen):
+        """A dtype outside a kernel's set raises; it is never converted."""
+        x = _cloud(gen, 1, 64, 16, device=cuda_device).half()
+        idx = torch.zeros((1, 8, 4), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(TypeError):
+            gather.onehot_gather_packed(x, idx)
+        with pytest.raises(TypeError):
+            gather.onehot_gather_packed(x.float(), idx.long())
+
+
 def _cell_inputs(gen, n, kk, c, n_slots, device):
     """A spatially sorted sheet, its self-kNN and candidate context."""
     u = gen.uniform(-1, 1, (n, 2))
@@ -133,6 +213,41 @@ class TestCellKernelsOnCard:
         assert torch.equal(got, cell_select.cell_select_x_reference(blk_x, pos))
         assert torch.equal(got_p,
                            cell_select.cell_select_p_reference(blk_p, pos, xyz))
+
+    @pytest.mark.parametrize("n,kk,c", [(2048, 36, 32), (2048, 36, 16),
+                                        (512, 12, 6)])
+    def test_cell_select_bf16(self, cuda_device, gen, n, kk, c):
+        """K4 on bf16 rows bit-equal to its twin, dump positions included."""
+        _, x, _, cand, pos = _cell_inputs(gen, n, kk, c, 8, cuda_device)
+        pos = pos.clone()
+        pos[::5, -1] = 64
+        blk_x = cells.gather_candidate_blocks(x.bfloat16(), cand)
+        got = cell_select.cell_select_x(blk_x, pos)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, cell_select.cell_select_x_reference(blk_x, pos))
+
+    @pytest.mark.parametrize("n,kk,c", [(2048, 36, 32), (1024, 24, 32)])
+    def test_gathered_attention_bf16(self, cuda_device, gen, n, kk, c):
+        """K6 on bf16 x_g and p_r (float32 q, weights and out) within 1e-4
+        of its twin."""
+        port = PointTransformerLayer(c, device=cuda_device)
+        randomize_(port, torch.Generator().manual_seed(0))
+        xyz, x, _, cand, pos = _cell_inputs(gen, n, kk, c, 32, cuda_device)
+        pos = cells.pos_with_self_fallback(pos, 256)
+        x_g = cell_select.cell_select_x(
+            cells.gather_candidate_blocks(x.bfloat16(), cand), pos).reshape(n * kk, c)
+        p_r = cell_select.cell_select_p(cells.gather_candidate_blocks(xyz, cand),
+                                        pos, xyz).reshape(n * kk, 3).bfloat16()
+        with torch.no_grad():
+            params = attention.fold_attention_params(port, torch.bfloat16)
+            q = port.linear_q(x).contiguous()
+            got = attention.fused_vector_attention(q, x_g, p_r, params, k=kk)
+            ref = attention.fused_vector_attention_reference(q, x_g, p_r, params,
+                                                             k=kk)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert (got - ref).abs().max().item() <= 1e-4
 
     @pytest.mark.parametrize("n,kk,c", [(2048, 36, 32), (2048, 36, 16),
                                         (1024, 24, 32), (64, 24, 512),

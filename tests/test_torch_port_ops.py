@@ -22,15 +22,20 @@ from toothgroupnetwork_tpu.models.point_transformer.backbone import (
 from toothgroupnetwork_tpu.ops import farthest_point_sample as jax_fps
 from toothgroupnetwork_tpu.ops import knn_interpolate as jax_interp
 from toothgroupnetwork_tpu.ops import knn_points as jax_knn
+from toothgroupnetwork_tpu.ops.gather import gather_neighbors as jax_gather_neighbors
 from toothgroupnetwork_tpu.ops.pallas.attention_kernel import (
-    fold_attention_params as jax_fold, fused_vector_attention_packed_x)
+    fold_attention_params as jax_fold, fused_vector_attention_packed,
+    fused_vector_attention_packed_x)
 from toothgroupnetwork_tpu.ops.pallas.fps_kernel import (
     fps_pallas, fps_pallas_multicloud)
+from toothgroupnetwork_tpu.ops.pallas.gather_kernel import (
+    onehot_gather as jax_onehot_gather, onehot_gather_packed as jax_onehot_packed)
 from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
     PointTransformerLayer)
 from toothgroupnetwork_tpu_torch.ops import (farthest_point_sample, index_points,
                                              knn_interpolate, knn_points)
-from toothgroupnetwork_tpu_torch.ops.kernels import attention, fps, knn
+from toothgroupnetwork_tpu_torch.ops.gather import gather_neighbors
+from toothgroupnetwork_tpu_torch.ops.kernels import attention, fps, gather, knn
 from toothgroupnetwork_tpu_torch.utils.weights import from_jax_variables
 
 REPO = Path(__file__).resolve().parents[1]
@@ -224,6 +229,92 @@ class TestAttention:
                                        rtol=1e-6, atol=1e-7, err_msg=key)
 
 
+class TestPreProjectedAttention:
+    """K7's twin (``fused_vector_attention_packed``: k and v projected ahead
+    of the kernel)."""
+
+    def _inputs(self, rng, b, n, kk, c):
+        lay, vs, port, pp, xx, kidx = _attention_setup(rng, b, n, kk, c)
+        p = vs["params"]
+        q = xx.reshape(b * n, -1) @ p["linear_q"]["kernel"] + p["linear_q"]["bias"]
+        from toothgroupnetwork_tpu.ops.gather import index_points as jax_gather
+
+        x_g = jax_gather(xx, kidx).reshape(b * n * kk, c)
+        p_r = (jax_gather(pp, kidx) - pp[:, :, None, :]).reshape(-1, 3)
+        params = jax_fold(vs)
+        k_g = x_g @ params["wk"] + params["bk"]
+        v_g = x_g @ params["wv"] + params["bv"]
+        return q, x_g, k_g, v_g, p_r, params, port
+
+    @pytest.mark.parametrize("c", [16, 32])
+    def test_matches_jax_kernel(self, rng, c):
+        """tests/test_fused_attention.py:60-84's inputs through the JAX entry
+        (interpret mode) and the twin: atol 1e-5 in float32."""
+        q, _, k_g, v_g, p_r, params, _ = self._inputs(rng, 2, 96, 8, c)
+        ref = fused_vector_attention_packed(q, k_g, v_g, p_r, params, k=8)
+        got = attention.fused_vector_attention_packed(
+            *(_t(np.asarray(a)) for a in (q, k_g, v_g, p_r)),
+            {k: _t(np.asarray(v)) for k, v in params.items()}, k=8)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+    def test_twin_equals_k6_twin_on_projected_rows(self, rng):
+        """K7's twin on rows projected as K6's twin projects them is K6's
+        twin (the in-kernel projection is the only difference)."""
+        q, x_g, _, _, p_r, _, port = self._inputs(rng, 1, 64, 12, 32)
+        with torch.no_grad():
+            params = attention.fold_attention_params(port)
+            xg, pr, qq = _t(np.asarray(x_g)), _t(np.asarray(p_r)), _t(np.asarray(q))
+            k_g = xg @ params["wk"] + params["bk"]
+            v_g = xg @ params["wv"] + params["bv"]
+            a = attention.fused_vector_attention_packed(qq, k_g, v_g, pr, params, k=12)
+            b = attention.fused_vector_attention(qq, xg, pr, params, k=12)
+        assert torch.equal(a, b)
+
+
+class TestRowGather:
+    """K8's twin against ``onehot_gather_packed`` / ``onehot_gather``
+    (interpret mode) and the port's ``gather_neighbors`` switch."""
+
+    @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+    def test_bit_equal_to_onehot_gather(self, rng, dtype):
+        b, n, c, m, k = 2, 200, 32, 57, 9   # tests/test_ops.py:598
+        x = jnp.asarray(rng.standard_normal((b, n, c)), dtype=dtype)
+        idx = jnp.asarray(rng.integers(0, n, (b, m, k)), dtype=jnp.int32)
+        xt = _t(np.asarray(x, dtype=np.float32)).to(
+            torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+        it = _t(np.asarray(idx))
+        packed = gather.onehot_gather_packed(xt, it)
+        assert packed.dtype == xt.dtype and packed.shape == (b, m, k * c)
+        np.testing.assert_array_equal(packed.float().numpy(),
+                                      np.asarray(jax_onehot_packed(x, idx), np.float32))
+        view = gather.onehot_gather(xt, it)
+        np.testing.assert_array_equal(view.float().numpy(),
+                                      np.asarray(jax_onehot_gather(x, idx), np.float32))
+        assert torch.equal(view, index_points(xt, it))
+
+    @pytest.mark.parametrize("mode", ["mxu", "auto"])
+    def test_gather_neighbors_switch(self, rng, monkeypatch, mode):
+        """tests/test_ops.py:613-627 with the port beside the JAX function:
+        both switch values give ``index_points``; ``mxu`` reaches K8's
+        wrapper (its twin here)."""
+        x = rng.standard_normal((1, 160, 16)).astype(np.float32)
+        idx = rng.integers(0, 160, (1, 40, 5)).astype(np.int32)
+        xb = jnp.asarray(x, dtype=jnp.bfloat16)
+        monkeypatch.setenv("TGN_TPU_GATHER", mode)
+        calls = []
+        monkeypatch.setattr(gather, "onehot_gather_packed_reference",
+                            lambda *a: calls.append(1) or index_points(*a).reshape(
+                                1, 40, 5 * 16))
+        want = np.asarray(jax_gather_neighbors(xb, jnp.asarray(idx), train=False),
+                          np.float32)
+        got = gather_neighbors(_t(np.asarray(xb, np.float32)).to(torch.bfloat16),
+                               _t(idx))
+        assert got.shape == (1, 40, 5, 16) and got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        assert len(calls) == (mode == "mxu")
+
+
 class TestWrappers:
     def test_counters_untouched_by_twins(self, rng):
         before = (fps.fps.launches, knn.knn_select.launches,
@@ -239,18 +330,30 @@ class TestWrappers:
         with pytest.raises(ValueError):
             fps.fps(meta, 2)
 
-    def test_import_hygiene(self):
-        """Every module of the port imports without JAX or flax (and without
-        nvcc or a card: nothing is built at import)."""
-        code = (
-            "import importlib, pkgutil, sys\n"
-            "import toothgroupnetwork_tpu_torch as pkg\n"
-            "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-            "    importlib.import_module(m.name)\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n"
-            "assert 'flax' not in sys.modules, 'flax imported'\n"
-            "print('clean')\n")
-        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    # after the imports: no JAX, no flax and no module of the JAX package
+    # (the name itself or one under it) in sys.modules
+    _CLEAN = (
+        "jax_pkg = [m for m in sys.modules if m == 'toothgroupnetwork_tpu'\n"
+        "           or m.startswith('toothgroupnetwork_tpu.')]\n"
+        "assert not jax_pkg, f'JAX package imported: {sorted(jax_pkg)[:5]}'\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'flax' not in sys.modules, 'flax imported'\n"
+        "print('clean')\n")
+
+    @pytest.mark.parametrize("what", ["package", "chip_smoke"])
+    def test_import_hygiene(self, what):
+        """Every module of the port, and ``chip_smoke.py`` (imported, its
+        ``main`` not run), imports without JAX, flax or the JAX package,
+        not even its numpy-only modules (and without nvcc or a card:
+        nothing is built at import)."""
+        if what == "package":
+            code = ("import importlib, pkgutil, sys\n"
+                    "import toothgroupnetwork_tpu_torch as pkg\n"
+                    "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+                    "    importlib.import_module(m.name)\n")
+        else:
+            code = "import sys\nimport chip_smoke\n"
+        out = subprocess.run([sys.executable, "-c", code + self._CLEAN], cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
         assert "clean" in out.stdout

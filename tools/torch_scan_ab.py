@@ -1,0 +1,131 @@
+"""In-turn comparison of two checkouts of the PyTorch port on one card.
+
+    python3 tools/torch_scan_ab.py --other DIR [--config JSON] [--steady 3]
+
+Writes random full-width fps + bdl weights (``save_npz``) and three synthetic
+100489-vertex scans, then runs the default inference pipeline of this
+checkout ("this") and of the checkout at DIR ("other") in separate
+processes, in the order other, this, this, other. Each process serves the
+three scans once, then the first scan ``--steady`` more times. It prints one
+JSON line per process and a summary: whether every process gave the same
+labels and instances on every scan, and the median wall and per-phase
+seconds of the steady calls of each checkout, beside the card's nvidia-smi
+name and power limit. Each process also times the fused attention kernel K3
+(float32, CUDA events, mean of 5 calls after one) at chip_smoke's three
+ATTENTION_SHAPES on the same random inputs. Needs one CUDA card; exits
+non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+
+# one process: serve the scans once, then the first scan again, timed
+RUNNER = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, ".")
+from toothgroupnetwork_tpu_torch.pipelines.tgn import TgnInferencePipeline
+
+fps, bdl, config, steady, out, *scans = sys.argv[1:]
+config = json.loads(config) if config else None
+pipe = TgnInferencePipeline(fps, bdl, config, device="cuda")
+res = {"outputs": [], "calls": []}
+for s in scans:
+    r = pipe(s)
+    res["outputs"].append([r["sem"].tolist(), r["ins"].tolist()])
+for _ in range(int(steady)):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe(scans[0])
+    torch.cuda.synchronize()
+    res["calls"].append({"wall_s": time.perf_counter() - t0, **pipe.timings})
+
+from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+    PointTransformerLayer)
+from toothgroupnetwork_tpu_torch.ops import knn_self
+from toothgroupnetwork_tpu_torch.ops.kernels import attention
+from toothgroupnetwork_tpu_torch.utils.weights import randomize_
+
+res["k3_ms"] = {}
+gen = torch.Generator().manual_seed(0)
+for b, n, kk, c in ((1, 24000, 36, 32), (16, 3072, 36, 32), (1, 93, 24, 512)):
+    layer = randomize_(PointTransformerLayer(c, device="cuda"), gen)
+    p = (torch.randn((b, n, 3), generator=gen) * 0.2).cuda()
+    x = (torch.randn((b, n, c), generator=gen) * 0.5).cuda()
+    idx, _ = knn_self(p, kk)
+    with torch.no_grad():
+        params = attention.fold_attention_params(layer)
+        q = layer.linear_q(x).reshape(b * n, c).contiguous()
+        call = lambda: attention.fused_vector_attention_packed_x(x, p, idx, q, params)
+        call()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(5):
+            call()
+        ev[1].record()
+        ev[1].synchronize()
+    res["k3_ms"][f"B{b}/N{n}/K{kk}/C{c}"] = ev[0].elapsed_time(ev[1]) / 5
+json.dump(res, open(out, "w"))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--config", default="", help="model_parameter config as JSON")
+    ap.add_argument("--steady", type=int, default=3)
+    args = ap.parse_args()
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_scan_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from synthetic import write_synthetic_obj
+
+    import chip_smoke
+
+    smi = chip_smoke.smi_line()
+    roots = {"this": REPO, "other": Path(args.other).resolve()}
+    with tempfile.TemporaryDirectory(prefix="torch_scan_ab_") as tmp:
+        work = Path(tmp)
+        ckpts = chip_smoke.make_weights(work)
+        scans = []
+        for s, jaw in enumerate(("lower", "upper", "lower")):
+            scans.append(work / f"scan{s}_{jaw}.obj")
+            write_synthetic_obj(str(scans[-1]), n_side=chip_smoke.N_SIDE, seed=s)
+        runs = []
+        for i, name in enumerate(("other", "this", "this", "other")):
+            out = work / f"run{i}.json"
+            subprocess.run([sys.executable, "-c", RUNNER, str(ckpts["fps"]),
+                            str(ckpts["bdl"]), args.config, str(args.steady),
+                            str(out), *map(str, scans)],
+                           cwd=roots[name], check=True)
+            res = json.loads(out.read_text())
+            runs.append((name, res))
+            print(json.dumps({"run": i, "checkout": name, "calls": res["calls"],
+                              "k3_ms": res["k3_ms"], "card": smi}), flush=True)
+    same = all(r["outputs"] == runs[0][1]["outputs"] for _, r in runs)
+    medians = {}
+    for name in ("other", "this"):
+        calls = [c for n, r in runs if n == name for c in r["calls"]]
+        medians[name] = {k: float(np.median([c[k] for c in calls]))
+                         for k in calls[0]}
+    print(json.dumps({"outputs_identical": same, "median_s": medians,
+                      "config": args.config, "card": smi}))
+    return 0 if same else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

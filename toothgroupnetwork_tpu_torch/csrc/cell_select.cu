@@ -12,12 +12,13 @@
 // row gather is an ordinary indexed load, so both kernels are plain indexed
 // copies and are bit-equal to their PyTorch twins. What bounds them is
 // memory traffic: K4 at N=24000/K=36/C=32 writes 111 MB and reads the
-// 98 MB candidate block (through L2, each cell's block is read by its 8
-// queries). Consecutive threads take consecutive channels (16-byte float4
-// loads and stores when C % 4 == 0), so every warp reads and writes whole
-// 128-byte lines.
-
-#include <type_traits>
+// 98 MB candidate block in float32 (half of each in bfloat16; through L2,
+// each cell's block is read by its 8 queries). K4 copies rows of either
+// dtype as bytes: one thread per 16-byte unit where a row is a multiple of
+// 16 bytes (4 float32 or 8 bfloat16 channels), else the widest of 8/4/2
+// bytes that divides it; consecutive threads take consecutive units, so
+// every warp reads and writes whole 128-byte lines. A zero unit is +0.0 in
+// both dtypes.
 
 #include "common.cuh"
 
@@ -25,34 +26,29 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int VEC>
-__global__ void cell_select_x_kernel(const float* __restrict__ blk,
+template <typename U>
+__global__ void cell_select_x_kernel(const U* __restrict__ blk,
                                      const int* __restrict__ pos,
-                                     size_t rows, int kk, int l8, int c,
-                                     float* __restrict__ out) {
-    using V = typename std::conditional<VEC == 4, float4, float>::type;
-    const int cv = c / VEC;                       // vectors per row
-    const size_t total = rows * (size_t)cv;
-    const V* src = reinterpret_cast<const V*>(blk);
-    V* dst = reinterpret_cast<V*>(out);
+                                     size_t rows, int kk, int l8, int upr,
+                                     U* __restrict__ out) {
+    const size_t total = rows * (size_t)upr;
     for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
          e += (size_t)gridDim.x * blockDim.x) {
-        const size_t row = e / cv;                // q * K + k
-        const int ch = (int)(e - row * cv);
+        const size_t row = e / upr;               // q * K + k
+        const int u = (int)(e - row * upr);
         const size_t q = row / kk;
         const int pp = pos[row];
-        V v;
-        if (pp >= 0 && pp < l8) {
-            v = src[((q >> 3) * l8 + pp) * cv + ch];
-        } else {
-            if constexpr (VEC == 4) {
-                v = make_float4(0.f, 0.f, 0.f, 0.f);
-            } else {
-                v = 0.f;
-            }
-        }
-        dst[e] = v;
+        out[e] = (pp >= 0 && pp < l8) ? blk[((q >> 3) * l8 + pp) * upr + u] : U{};
     }
+}
+
+template <typename U>
+int launch_x(const void* blk, const int* pos, size_t rows, int kk, int l8,
+             int row_bytes, void* out, cudaStream_t stream) {
+    const int upr = row_bytes / (int)sizeof(U);
+    cell_select_x_kernel<U><<<grid_for(rows * upr, kThreads), kThreads, 0, stream>>>(
+        static_cast<const U*>(blk), pos, rows, kk, l8, upr, static_cast<U*>(out));
+    return (int)cudaGetLastError();
 }
 
 __global__ void cell_select_p_kernel(const float* __restrict__ blk,
@@ -73,26 +69,23 @@ __global__ void cell_select_p_kernel(const float* __restrict__ blk,
     }
 }
 
-unsigned grid_for(size_t work) {
-    const size_t blocks = (work + kThreads - 1) / kThreads;
-    return (unsigned)(blocks < 65535u * 16u ? (blocks > 0 ? blocks : 1) : 65535u * 16u);
-}
-
 }  // namespace
 
-// blk [G, L8, C] f32, pos [N, K] int32 (N = 8 G) -> out [N, K, C] f32.
-// Returns cudaGetLastError().
-extern "C" int tgn_cell_select_x(const float* blk, const int* pos, int n, int kk,
-                                 int l8, int c, float* out, cudaStream_t stream) {
+// blk [G, L8, C] (row_bytes = C * itemsize, float32 or bfloat16), pos
+// [N, K] int32 (N = 8 G) -> out [N, K, C] in blk's dtype. Returns
+// cudaGetLastError().
+extern "C" int tgn_cell_select_x(const void* blk, const int* pos, int n, int kk,
+                                 int l8, int row_bytes, void* out,
+                                 cudaStream_t stream) {
     const size_t rows = (size_t)n * kk;
-    if (c % 4 == 0) {
-        cell_select_x_kernel<4><<<grid_for(rows * (c / 4)), kThreads, 0, stream>>>(
-            blk, pos, rows, kk, l8, c, out);
-    } else {
-        cell_select_x_kernel<1><<<grid_for(rows * c), kThreads, 0, stream>>>(
-            blk, pos, rows, kk, l8, c, out);
+    switch (copy_unit((size_t)row_bytes, blk, out)) {
+        case 16: return launch_x<uint4>(blk, pos, rows, kk, l8, row_bytes, out, stream);
+        case 8: return launch_x<uint2>(blk, pos, rows, kk, l8, row_bytes, out, stream);
+        case 4: return launch_x<unsigned>(blk, pos, rows, kk, l8, row_bytes, out,
+                                          stream);
+        default: return launch_x<unsigned short>(blk, pos, rows, kk, l8, row_bytes,
+                                                 out, stream);
     }
-    return (int)cudaGetLastError();
 }
 
 // blk [G, L8, 3] f32, pos [N, K] int32, p_q [N, 3] f32 -> out [N, K, 3] f32.
@@ -101,7 +94,7 @@ extern "C" int tgn_cell_select_p(const float* blk, const int* pos, const float* 
                                  int n, int kk, int l8, float* out,
                                  cudaStream_t stream) {
     const size_t rows = (size_t)n * kk;
-    cell_select_p_kernel<<<grid_for(rows), kThreads, 0, stream>>>(
+    cell_select_p_kernel<<<grid_for(rows, kThreads), kThreads, 0, stream>>>(
         blk, pos, p_q, rows, kk, l8, out);
     return (int)cudaGetLastError();
 }

@@ -1,9 +1,51 @@
 // Shared helpers for the hand-written Hopper kernels of toothgroupnetwork_tpu_torch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <math_constants.h>
+
+// Element access of the two model dtypes: bf16 is read widened to float
+// (exact) and written with round-to-nearest-even, as a cast in the JAX
+// package rounds it.
+__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
+    return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
+    p[i] = __float2bfloat16_rn(v);
+}
+
+// v rounded to T and widened back: the identity for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+    if constexpr (sizeof(T) == 2) {
+        return __bfloat162float(__float2bfloat16_rn(v));
+    } else {
+        return v;
+    }
+}
+
+// Blocks of `threads` for a grid-stride loop over `work` items, capped at
+// 16 * 65535 blocks (a thread then loops over the rest).
+inline unsigned grid_for(size_t work, int threads) {
+    const size_t blocks = (work + threads - 1) / threads;
+    return (unsigned)(blocks < 65535u * 16u ? (blocks > 0 ? blocks : 1) : 65535u * 16u);
+}
+
+// The copy unit of a row copy: the widest of 16, 8, 4 and 2 bytes that
+// divides the row and both base addresses, so that every row of source and
+// destination starts aligned to it (the rows of a float32 or bfloat16
+// tensor are whole multiples of 2 bytes).
+inline int copy_unit(size_t row_bytes, const void* src, const void* dst) {
+    const size_t bits = row_bytes | (size_t)src | (size_t)dst;
+    for (int u = 16; u > 2; u /= 2) {
+        if (bits % u == 0) return u;
+    }
+    return 2;
+}
 
 // Squared distance in a fixed order, (dx*dx + dy*dy) + dz*dz, with the
 // round-to-nearest intrinsics so nvcc cannot contract it into FMAs. The plain

@@ -13,20 +13,28 @@ mechanically (utils/weights.py). Structure kept from the JAX package:
     which computes the relative positions from ``p`` and the kNN indices
     itself (the JAX package hoists that gather per stage),
   * with ``cell_attention`` (eval, B == 1, N % 8 == 0, points still in the
-    caller's spatially sorted order) a stage builds a super-row candidate
-    context instead (ops/cells.py): the relative positions are selected once
-    per stage through K5, each layer selects its neighbour rows through K4
-    and runs K6 on the gathered rows.
+    caller's spatially sorted order; ``TGN_TPU_CELLS=off`` turns it off, as
+    in the JAX package) a stage builds a super-row candidate context instead
+    (ops/cells.py): the relative positions are selected once per stage
+    through K5, each layer selects its neighbour rows through K4 and runs K6
+    on the gathered rows,
+  * ``dtype`` is the compute dtype of the body (float32, or bfloat16 for
+    the serving configuration), with the JAX package's casts: geometry
+    ``p`` stays float32, the features, every Dense and BatchNorm and the
+    relative positions run in ``dtype``, the attention kernels compute in
+    float32 from ``dtype`` inputs, and the two heads' last Dense (``cls``)
+    runs in float32, so logits and offsets come back float32.
 """
 
 from __future__ import annotations
 
+import os
 from collections.abc import Sequence
 
 import torch
 from torch import nn
 
-from ...nn.layers import MaskedBatchNorm, masked_mean
+from ...nn.layers import Dense, MaskedBatchNorm, masked_mean
 from ...ops import (farthest_point_sample, index_points, knn_interpolate,
                     knn_points, knn_self)
 from ...ops.cells import (build_cell_candidates, gather_candidate_blocks,
@@ -37,62 +45,67 @@ from ...ops.kernels.attention import (fold_attention_params,
 from ...ops.kernels.cell_select import cell_select_p, cell_select_x
 
 
-def _linear(din: int, dout: int, device, bias: bool = True) -> nn.Linear:
-    return nn.Linear(din, dout, bias=bias, device=device)
-
-
 class PointTransformerLayer(nn.Module):
     """Vector self-attention over a precomputed kNN neighbourhood."""
 
-    def __init__(self, planes: int, share_planes: int = 8, *, device):
+    def __init__(self, planes: int, share_planes: int = 8, *, device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         mid = out = planes
         cs = out // share_planes
-        self.linear_q = _linear(planes, mid, device)
-        self.linear_k = _linear(planes, mid, device)
-        self.linear_v = _linear(planes, out, device)
-        self.linear_p0 = _linear(3, 3, device)
-        self.linear_p_bn = MaskedBatchNorm(3, device=device)
-        self.linear_p1 = _linear(3, out, device)
-        self.linear_w_bn0 = MaskedBatchNorm(mid, device=device)
-        self.linear_w0 = _linear(mid, mid // share_planes, device)
-        self.linear_w_bn1 = MaskedBatchNorm(cs, device=device)
-        self.linear_w1 = _linear(cs, cs, device)
+        kw = dict(device=device, dtype=dtype)
+        self.linear_q = Dense(planes, mid, **kw)
+        self.linear_k = Dense(planes, mid, **kw)
+        self.linear_v = Dense(planes, out, **kw)
+        self.linear_p0 = Dense(3, 3, **kw)
+        self.linear_p_bn = MaskedBatchNorm(3, **kw)
+        self.linear_p1 = Dense(3, out, **kw)
+        self.linear_w_bn0 = MaskedBatchNorm(mid, **kw)
+        self.linear_w0 = Dense(mid, mid // share_planes, **kw)
+        self.linear_w_bn1 = MaskedBatchNorm(cs, **kw)
+        self.linear_w1 = Dense(cs, cs, **kw)
 
     def forward(self, p, x, knn_idx, cell=None):
         """``cell``: the stage's ``(cand, pos, p_r)`` candidate context
-        (B == 1), or None for the fused-gather kernel K3."""
+        (B == 1, p_r in the model dtype), or None for the fused-gather
+        kernel K3."""
         b, n, kk = knn_idx.shape
         q = self.linear_q(x).reshape(b * n, -1).contiguous()
-        params = fold_attention_params(self)
+        params = fold_attention_params(self, self.dtype)
         if cell is None:
+            # out in the model dtype (the JAX backbone's out_dtype)
             agg = fused_vector_attention_packed_x(
                 x.contiguous(), p.contiguous(), knn_idx.contiguous(), q, params)
         else:
+            # q and out float32; the caller casts (backbone.py:192-194)
             cand, pos, p_r = cell
             x_g = cell_select_x(gather_candidate_blocks(x[0], cand), pos)
-            agg = fused_vector_attention(q, x_g.reshape(b * n * kk, -1), p_r,
-                                         params, k=kk)
+            agg = fused_vector_attention(q.float(), x_g.reshape(b * n * kk, -1),
+                                         p_r, params, k=kk).to(self.dtype)
         return agg.reshape(b, n, -1)
 
 
 class PointTransformerBlock(nn.Module):
     """linear+BN+ReLU -> attention+BN+ReLU -> linear+BN, + skip, ReLU."""
 
-    def __init__(self, planes: int, share_planes: int = 8, *, device):
+    def __init__(self, planes: int, share_planes: int = 8, *, device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.linear1 = _linear(planes, planes, device, bias=False)
-        self.bn1 = MaskedBatchNorm(planes, device=device)
-        self.transformer = PointTransformerLayer(planes, share_planes, device=device)
-        self.bn2 = MaskedBatchNorm(planes, device=device)
-        self.linear3 = _linear(planes, planes, device, bias=False)
-        self.bn3 = MaskedBatchNorm(planes, device=device)
+        self.dtype = dtype
+        kw = dict(device=device, dtype=dtype)
+        self.linear1 = Dense(planes, planes, bias=False, **kw)
+        self.bn1 = MaskedBatchNorm(planes, **kw)
+        self.transformer = PointTransformerLayer(planes, share_planes, **kw)
+        self.bn2 = MaskedBatchNorm(planes, **kw)
+        self.linear3 = Dense(planes, planes, bias=False, **kw)
+        self.bn3 = MaskedBatchNorm(planes, **kw)
 
     def forward(self, p, x, knn_idx, cell=None):
         h = torch.relu(self.bn1(self.linear1(x)))
         h = torch.relu(self.bn2(self.transformer(p, h, knn_idx, cell)))
         h = self.bn3(self.linear3(h))
-        return torch.relu(h + x)
+        return torch.relu(h + x.to(self.dtype))
 
 
 class TransitionDown(nn.Module):
@@ -100,12 +113,12 @@ class TransitionDown(nn.Module):
     linear+BN+ReLU, max-pool; stride 1: linear+BN+ReLU."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
-                 nsample: int = 16, *, device):
+                 nsample: int = 16, *, device, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride, self.nsample = stride, nsample
         din = in_planes if stride == 1 else 3 + in_planes
-        self.linear = _linear(din, out_planes, device, bias=False)
-        self.bn = MaskedBatchNorm(out_planes, device=device)
+        self.linear = Dense(din, out_planes, bias=False, device=device, dtype=dtype)
+        self.bn = MaskedBatchNorm(out_planes, device=device, dtype=dtype)
 
     def forward(self, p, x, mask=None):
         if self.stride == 1:
@@ -118,6 +131,8 @@ class TransitionDown(nn.Module):
             new_mask = torch.gather(mask, 1, fps_idx.long())
         idx, _ = knn_points(new_p, p, self.nsample, new_mask, mask,
                             need_dist=False)
+        # float32 positions beside model-dtype features: the concat is
+        # float32 and the Dense casts it, as in the JAX package
         grouped = torch.cat([index_points(p, idx) - new_p[:, :, None, :],
                              index_points(x, idx)], dim=-1)
         h = torch.relu(self.bn(self.linear(grouped)))
@@ -128,39 +143,44 @@ class TransitionUp(nn.Module):
     """Decoder lateral + upsample; ``out_planes=None`` is the bottleneck head
     (concat a per-cloud mean embedding instead of upsampling)."""
 
-    def __init__(self, in_planes: int, out_planes: int | None = None, *, device):
+    def __init__(self, in_planes: int, out_planes: int | None = None, *, device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.is_head = out_planes is None
+        self.dtype = dtype
+        kw = dict(device=device, dtype=dtype)
         if self.is_head:
-            self.linear2 = _linear(in_planes, in_planes, device)
-            self.linear1 = _linear(2 * in_planes, in_planes, device)
-            self.bn1 = MaskedBatchNorm(in_planes, device=device)
+            self.linear2 = Dense(in_planes, in_planes, **kw)
+            self.linear1 = Dense(2 * in_planes, in_planes, **kw)
+            self.bn1 = MaskedBatchNorm(in_planes, **kw)
         else:
-            self.linear1 = _linear(out_planes, out_planes, device)
-            self.bn1 = MaskedBatchNorm(out_planes, device=device)
-            self.linear2 = _linear(in_planes, out_planes, device)
-            self.bn2 = MaskedBatchNorm(out_planes, device=device)
+            self.linear1 = Dense(out_planes, out_planes, **kw)
+            self.bn1 = MaskedBatchNorm(out_planes, **kw)
+            self.linear2 = Dense(in_planes, out_planes, **kw)
+            self.bn2 = MaskedBatchNorm(out_planes, **kw)
 
     def forward(self, p1, x1, mask1=None, p2=None, x2=None, mask2=None):
         if self.is_head:
             g = torch.relu(self.linear2(masked_mean(x1, mask1, dim=1)))
-            h = torch.cat([x1, g[:, None, :].expand(-1, x1.shape[1], -1)], dim=-1)
+            h = torch.cat([x1.to(self.dtype),
+                           g[:, None, :].expand(-1, x1.shape[1], -1)], dim=-1)
             return torch.relu(self.bn1(self.linear1(h)))
         a = torch.relu(self.bn1(self.linear1(x1)))
         b = torch.relu(self.bn2(self.linear2(x2)))
         # stride-1 lateral: 3-NN inverse-distance interpolation onto the same
-        # point set is the identity
+        # point set is the identity; the interpolation itself is float32
         up = b if p1 is p2 else knn_interpolate(p1, p2, b, 3, mask1, mask2)
-        return a + up
+        return (a + up).to(self.dtype)
 
 
 class StageMLP(nn.Module):
     """MultiHead per-stage latent MLP: Linear + BN + ReLU."""
 
-    def __init__(self, din: int, base_fdim: int, *, device):
+    def __init__(self, din: int, base_fdim: int, *, device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = _linear(din, base_fdim, device)
-        self.bn = MaskedBatchNorm(base_fdim, device=device)
+        self.dense = Dense(din, base_fdim, device=device, dtype=dtype)
+        self.bn = MaskedBatchNorm(base_fdim, device=device, dtype=dtype)
 
     def forward(self, x):
         return torch.relu(self.bn(self.dense(x)))
@@ -168,15 +188,16 @@ class StageMLP(nn.Module):
 
 class MultiHead(nn.Module):
     """Per-stage latent MLPs -> 1-NN upsample to full resolution -> concat ->
-    Linear(k)."""
+    Linear(k), the last in float32 whatever the model dtype."""
 
     def __init__(self, k: int, planes: Sequence[int], base_fdim: int = 32, *,
-                 device):
+                 device, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_stages = len(planes)
         for i, c in enumerate(planes):
-            self.add_module(f"stage_{i}", StageMLP(c, base_fdim, device=device))
-        self.cls = _linear(base_fdim * len(planes), k, device)
+            self.add_module(f"stage_{i}", StageMLP(c, base_fdim, device=device,
+                                                   dtype=dtype))
+        self.cls = Dense(base_fdim * len(planes), k, device=device)
 
     def forward(self, stage_x, up1_idx):
         collect = []
@@ -196,8 +217,9 @@ class PointTransformerSeg(nn.Module):
                  blocks: Sequence[int] = (2, 3, 4, 6, 3),
                  block_num: int = 5, share_planes: int = 8,
                  base_fdim: int = 32, cell_attention: bool = False,
-                 cell_slots: int = 32, *, device):
+                 cell_slots: int = 32, *, device, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         # cell_attention needs the caller to feed a spatially sorted cloud
         # (ops/cells.py:spatial_sort_perm); an unsorted one loses neighbours
         # to slot overflow
@@ -205,38 +227,40 @@ class PointTransformerSeg(nn.Module):
         self.planes, self.stride = tuple(planes), tuple(stride)
         self.nsample, self.blocks = tuple(nsample), tuple(blocks)
         self.block_num = bn = block_num
+        kw = dict(device=device, dtype=dtype)
         for i in range(bn):
             din = c if i == 0 else planes[i - 1]
             self.add_module(f"enc{i + 1}_down", TransitionDown(
-                din, planes[i], stride[i], nsample[i], device=device))
+                din, planes[i], stride[i], nsample[i], **kw))
             for j in range(1, blocks[i]):
                 self.add_module(f"enc{i + 1}_block{j}", PointTransformerBlock(
-                    planes[i], share_planes, device=device))
-        self.add_module(f"dec{bn}_up", TransitionUp(planes[bn - 1], None,
-                                                    device=device))
+                    planes[i], share_planes, **kw))
+        self.add_module(f"dec{bn}_up", TransitionUp(planes[bn - 1], None, **kw))
         self.add_module(f"dec{bn}_block1", PointTransformerBlock(
-            planes[bn - 1], share_planes, device=device))
+            planes[bn - 1], share_planes, **kw))
         for i in range(bn - 2, -1, -1):
             self.add_module(f"dec{i + 1}_up", TransitionUp(
-                planes[i + 1], planes[i], device=device))
+                planes[i + 1], planes[i], **kw))
             self.add_module(f"dec{i + 1}_block1", PointTransformerBlock(
-                planes[i], share_planes, device=device))
-        self.cls_head = MultiHead(k, planes[:bn], base_fdim, device=device)
-        self.offset_head = MultiHead(3, planes[:bn], base_fdim, device=device)
+                planes[i], share_planes, **kw))
+        self.cls_head = MultiHead(k, planes[:bn], base_fdim, **kw)
+        self.offset_head = MultiHead(3, planes[:bn], base_fdim, **kw)
 
     def _cell_ctx(self, p, knn_idx):
         """The stage's ``(cand, pos)`` candidate context, or None where the
-        path does not apply: train mode, B != 1, or N not a multiple of 8."""
+        path does not apply: train mode, B != 1, N not a multiple of 8, or
+        ``TGN_TPU_CELLS=off`` in the environment (the JAX package's switch)."""
         b, n, _ = knn_idx.shape
-        if not self.cell_attention or self.training or b != 1 or n % 8:
+        if (not self.cell_attention or self.training or b != 1 or n % 8
+                or os.environ.get("TGN_TPU_CELLS", "on") == "off"):
             return None
         cand, pos, _ = build_cell_candidates(knn_idx[0], self.cell_slots)
         return cand, pos_with_self_fallback(pos, self.cell_slots * 8)
 
     def forward(self, feat, mask=None):
         bn = self.block_num
-        p = feat[..., :3].to(torch.float32).contiguous()
-        x = feat.to(torch.float32)
+        p = feat[..., :3].to(torch.float32).contiguous()  # geometry stays f32
+        x = feat.to(self.dtype)
 
         stages = []
         sorted_chain = True  # points still in the caller's (sorted) order?
@@ -262,7 +286,7 @@ class PointTransformerSeg(nn.Module):
                            .reshape(-1, 3).contiguous())
                 else:
                     p_r = cell_select_p(gather_candidate_blocks(p[0], ctx[0]),
-                                        ctx[1], p[0]).reshape(-1, 3)
+                                        ctx[1], p[0]).reshape(-1, 3).to(self.dtype)
                 cell = (*ctx, p_r)
             for j in range(1, self.blocks[i]):
                 x = getattr(self, f"enc{i + 1}_block{j}")(p, x, knn_idx, cell)

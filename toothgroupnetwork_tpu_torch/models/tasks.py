@@ -6,7 +6,13 @@ from __future__ import annotations
 
 import copy
 
+import torch
+
 from .tgnet import TGNet
+
+# model_parameter["dtype"] -> the backbone's compute dtype (tasks.py:
+# _pt_backbone_params); parameters, geometry and logits stay float32
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # train_configs/tgnet_fps.py model_parameter (tasks.py:_tgnet_preset)
 TGNET_FPS_MODEL_PARAMETER = {
@@ -43,14 +49,17 @@ def backbone_kwargs(mp: dict) -> dict:
 
 def build_tgnet_fps(cfg: dict, *, device) -> TGNet:
     mp = cfg["model_parameter"]
-    if mp.get("dtype", "float32") != "float32":
-        raise NotImplementedError("the port serves float32 only (model_parameter "
-                                  f"dtype {mp.get('dtype')})")
+    name = mp.get("dtype", "float32")
+    if name not in DTYPES:
+        raise NotImplementedError(f"model_parameter dtype {name!r}: the port "
+                                  f"serves {sorted(DTYPES)}")
     return TGNet(crop_size=mp.get("crop_sample_size", 3072),
                  cell_attention=bool(mp.get("cell_attention", False)),
-                 **backbone_kwargs(mp), device=device)
+                 **backbone_kwargs(mp), device=device, dtype=DTYPES[name])
 
 
 def build_tgnet_bdl(crop_size: int, arch: dict | None = None, *, device) -> TGNet:
+    """The boundary model: built without the dtype, so float32 (as in the
+    JAX pipeline, only the fps model takes ``model_parameter["dtype"]``)."""
     return TGNet(crop_size=crop_size, c=6, **dict(arch or TGNET_BDL_ARCH),
                  device=device)

@@ -40,19 +40,21 @@ def make_crops(feat: torch.Tensor, centroids: torch.Tensor,
 
 class TGNet(nn.Module):
     """Two cascaded backbones: ``first`` (k = 9 + 1 half-arch classes) and
-    ``second`` (k = 2, FG/BG over the crops)."""
+    ``second`` (k = 2, FG/BG over the crops), both computing in ``dtype``
+    (their logits and offsets are float32 either way)."""
 
     def __init__(self, crop_size: int = 3072, c: int = 6,
                  planes=(32, 64, 128, 256, 512), stride=(1, 4, 4, 4, 4),
                  nsample=(36, 24, 24, 24, 24), blocks=(2, 3, 4, 6, 3),
-                 block_num: int = 5, cell_attention: bool = False, *, device):
+                 block_num: int = 5, cell_attention: bool = False, *, device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.crop_size = crop_size
         # the crop half runs 16 crops at once (B != 1), where the cell path
         # turns itself off, so both halves may share the flag
         kw = dict(c=c, planes=planes, stride=stride, nsample=nsample,
                   blocks=blocks, block_num=block_num,
-                  cell_attention=cell_attention, device=device)
+                  cell_attention=cell_attention, device=device, dtype=dtype)
         self.first = PointTransformerSeg(k=10, **kw)
         self.second = PointTransformerSeg(k=2, **kw)
 

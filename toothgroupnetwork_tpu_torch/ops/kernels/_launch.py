@@ -4,15 +4,22 @@ from __future__ import annotations
 
 import torch
 
+# the element types of the model's features: the serving configuration
+# computes in bfloat16, the default one in float32
+MODEL_DTYPES = (torch.float32, torch.bfloat16)
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int,
+
+def require(t: torch.Tensor, name: str, dtype, dim: int,
             device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank ``dim`` on
-    ``device`` — the C entry points take raw pointers and dense strides."""
+    """Raise unless ``t`` is a contiguous tensor of rank ``dim`` on
+    ``device`` whose dtype is ``dtype`` (one dtype or a tuple of the dtypes
+    the kernel takes) — the C entry points take raw pointers and dense
+    strides, and a tensor of another dtype is never converted."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
     if t.dim() != dim:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected rank {dim}")
     if not t.is_contiguous():

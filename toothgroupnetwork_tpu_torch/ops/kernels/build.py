@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library
-with a plain C interface and loaded with ``ctypes``. The library lands in
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` process
+per source, all started together, and linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), under a
 name keyed by a hash of the sources and the compiler flags, so an edited
 source is rebuilt and an unchanged one is reused. Nothing is compiled at
@@ -21,17 +22,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _SIGNATURES = {
     # name: (argtypes, restype)
     "tgn_fps": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
     "tgn_knn": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
-    "tgn_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
-    "tgn_attention_gathered": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
+    "tgn_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P], _I),
+    "tgn_attention_gathered": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P], _I),
+    "tgn_attention_projected": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+                                _I),
     "tgn_attention_smem_bytes": ([_I, _I, _I], _Z),
+    "tgn_attention_projected_smem_bytes": ([_I, _I, _I], _Z),
     "tgn_cell_select_x": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "tgn_gather_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
     "tgn_cell_select_p": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "tgn_error_string": ([_I], ctypes.c_char_p),
 }
@@ -65,6 +70,40 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]], log: list[str]) -> None:
+    """Run the commands side by side, their output appended to ``log``;
+    raise if any fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        stdout, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{stdout}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _compile(out: Path, log_path: Path) -> None:
+    """Each source to an object file (all at once), then one link; the
+    compiler's output goes to ``log_path`` whether or not it succeeds."""
+    nvcc = _nvcc()
+    tmp = out.with_suffix(f".{os.getpid()}.d")
+    tmp.mkdir(exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [tmp / (s.stem + ".o") for s in sources]
+    log: list[str] = []
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+              for s, o in zip(sources, objs)], log)
+        _run([[nvcc, "-shared", "-o", str(tmp / out.name), *map(str, objs)]], log)
+        os.replace(tmp / out.name, out)
+    finally:
+        log_path.write_text("\n".join(log))
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on any failure."""
     global _lib
@@ -77,15 +116,7 @@ def library() -> ctypes.CDLL:
     built = False
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        _compile(out, log)
         built = True
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in _SIGNATURES.items():

@@ -14,14 +14,14 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import on_cpu, require, stream_of
+from ._launch import MODEL_DTYPES, on_cpu, require, stream_of
 
 CELL = 8
 
 
-def _check(blk: torch.Tensor, pos: torch.Tensor, width: int | None) -> None:
+def _check(blk: torch.Tensor, pos: torch.Tensor, dtypes, width: int | None) -> None:
     dev = blk.device
-    require(blk, "blk", torch.float32, 3, dev)
+    require(blk, "blk", dtypes, 3, dev)
     require(pos, "pos", torch.int32, 2, dev)
     if pos.shape[0] != blk.shape[0] * CELL or (width and blk.shape[2] != width):
         raise ValueError(f"cell_select: blk {tuple(blk.shape)} pos "
@@ -29,20 +29,22 @@ def _check(blk: torch.Tensor, pos: torch.Tensor, width: int | None) -> None:
 
 
 def cell_select_x(blk_x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """K4: ``blk_x [G, L8, C]`` f32 + ``pos [N, K]`` int32 (N = 8 G) ->
-    ``x_g [N, K, C]`` f32, ``x_g[q, k] = blk_x[q // 8, pos[q, k]]``.
-    CPU tensors take :func:`cell_select_x_reference`."""
+    """K4: ``blk_x [G, L8, C]`` (float32 or bfloat16) + ``pos [N, K]`` int32
+    (N = 8 G) -> ``x_g [N, K, C]`` in blk_x's dtype,
+    ``x_g[q, k] = blk_x[q // 8, pos[q, k]]``. CPU tensors take
+    :func:`cell_select_x_reference`."""
     if on_cpu(blk_x):
         return cell_select_x_reference(blk_x, pos)
-    _check(blk_x, pos, None)
+    _check(blk_x, pos, MODEL_DTYPES, None)
     dev = blk_x.device
     _, l8, c = blk_x.shape
     n, kk = pos.shape
     with torch.cuda.device(dev):
         lib = build.library()
-        out = torch.empty((n, kk, c), dtype=torch.float32, device=dev)
+        out = torch.empty((n, kk, c), dtype=blk_x.dtype, device=dev)
         status = lib.tgn_cell_select_x(blk_x.data_ptr(), pos.data_ptr(), n, kk,
-                                       l8, c, out.data_ptr(), stream_of(dev))
+                                       l8, c * blk_x.element_size(), out.data_ptr(),
+                                       stream_of(dev))
         build.check(status, "tgn_cell_select_x")
     cell_select_x.launches += 1
     return out
@@ -58,7 +60,7 @@ def cell_select_p(blk_p: torch.Tensor, pos: torch.Tensor,
     CPU tensors take :func:`cell_select_p_reference`."""
     if on_cpu(blk_p):
         return cell_select_p_reference(blk_p, pos, p_q)
-    _check(blk_p, pos, 3)
+    _check(blk_p, pos, torch.float32, 3)
     dev = blk_p.device
     require(p_q, "p_q", torch.float32, 2, dev)
     n, kk = pos.shape

@@ -15,8 +15,10 @@ non-TPU route):
   8. host: arch disambiguation (9 -> 16 classes) + boundary-cluster fusion,
   9. host 1-NN transfer to every original vertex + FDI remap.
 
-The model forwards run on ``device`` with float32 throughout; everything
-between them is host numpy.
+The model forwards run on ``device``; the fps model computes in
+``model_parameter["dtype"]`` (float32 by default, or bfloat16, the JAX
+package's serving dtype), the bdl model in float32, and logits, offsets and
+votes reach the host in float32. Everything between them is host numpy.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
-from toothgroupnetwork_tpu.data.scan_prep import N_SAMPLE, prep_scan_host_tgn
-
+from ..data.scan_prep import N_SAMPLE, prep_scan_host_tgn
 from ..models.tasks import (TGNET_BDL_ARCH, build_tgnet_bdl, build_tgnet_fps,
                             tgnet_fps_config)
 from ..models.tgnet import make_crops
@@ -47,9 +48,11 @@ K_MAX = 16  # crop slots; challenge jaws have <= 16 teeth
 
 def use_full_fp32() -> None:
     """Keep every float32 matrix product in full float32 on the card (no
-    TF32), as the JAX package selects ``Precision.HIGHEST``."""
+    TF32), as the JAX package selects ``Precision.HIGHEST``, and the sums of
+    bfloat16 products in float32 (no bf16 split-K reductions)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _pad_centroids(centroids, device):
