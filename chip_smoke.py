@@ -82,7 +82,7 @@ ENTRY_SHAPES = ((16, 3072, 36, 32), (1, 24000, 36, 32))
 N_POINTS = 24000          # the fps model's input cloud
 N_SIDE = 317              # synthetic scans of 317^2 = 100489 vertices
 CARD = {"card": None}     # the nvidia-smi line, beside every number logged
-# published H100 SXM peaks (on-chip-measurement guide): float32 outside the
+# published H100 SXM peaks (NVIDIA's H100 datasheet): float32 outside the
 # tensor cores (every kernel here computes in float32) and HBM bandwidth
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
