@@ -14,9 +14,12 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      least time the card could take for the same work (the larger of the
      bytes over 3.35 TB/s and the operations over 67 TFLOP/s, float32) and,
      where one PyTorch call computes the same function, that call's time
-     (the cell-attention kernels K4/K5/K6 on a spatially sorted 24000-point
-     sheet; K7 and K8 at the crop and full-cloud shapes; the bfloat16
-     variants of K3, K4 and K6 against their bfloat16 twins);
+     (K1 with its cluster size and microseconds a step, beside its chain
+     floor: the per-step exchange alone over 24000 steps on 16 CTAs, K1's
+     and the cluster-barrier design's; K2 also on the first cloud spatially
+     sorted; the cell-attention kernels K4/K5/K6 on a spatially sorted
+     24000-point sheet; K7 and K8 at the crop and full-cloud shapes; the
+     bfloat16 variants of K3, K4 and K6 against their bfloat16 twins);
   4. full-width fps model, stage 1 over a 24000-point cloud: the kernels on
      the card against the same port on the CPU (plain versions), on the
      default path, with ``cell_attention`` on the sorted cloud, and in
@@ -65,10 +68,14 @@ BG_SHIFT = {"first": -3.0, "second": -2.0}
 # phase-3 shapes, the ones the inference path gives each kernel
 FPS_SHAPES = ((1, 24000, 6000, None),           # B, N, samples, valid points
               (16, 3072, 768, None),
-              (1, 106496, 24000, 100489))       # mesh prep, padded to 8192s
-KNN_SHAPES = ((1, 24000, 24000, 36, True),      # B, M, N, k, self-query
-              (16, 3072, 3072, 36, True),
-              (1, 6000, 24000, 24, False))
+              (1, 106496, 24000, 100489),       # mesh prep, padded to 8192s
+              (1, 100489, 24000, None),         # mesh prep as the port runs it
+              (1, 84000, 8000, None))           # a boundary fill
+KNN_SHAPES = ((1, 24000, 24000, 36, True, False),   # B, M, N, k, self-query,
+              (16, 3072, 3072, 36, True, False),    # spatially sorted
+              (1, 6000, 24000, 24, False, False),
+              (1, 24000, 24000, 36, True, True))    # the first cloud, sorted
+FPS_CHAIN = (24000, 16)   # K1's chain floor: steps, cluster size
 ATTENTION_SHAPES = ((1, 24000, 36, 32),         # B, N, K, C
                     (16, 3072, 36, 32),
                     (1, 93, 24, 512))
@@ -220,6 +227,18 @@ def phase_kernels(dev, gen):
         "attention", "toothgroupnetwork_tpu_torch/csrc/attention.cu",
         "toothgroupnetwork_tpu/ops/pallas/attention_kernel.py:346")
 
+    # K1's chain floor: the per-step exchange alone at the mesh-prep step
+    # count and cluster size, K1's (push) and the cluster-barrier design's
+    # (pull), beside the mesh-prep shape's FLOP bound
+    steps, c = FPS_CHAIN
+    floor = {f"{way}_ms": cuda_ms(lambda: fps.chain_floor(steps, c, dev,
+                                                          pull=way == "pull"), 3)
+             for way in ("push", "pull")}
+    rec_fps.entry["chain_floor"] = {"steps": steps, "cluster": c, **floor}
+    log("fps_chain_floor", steps=steps, cluster=c, **floor,
+        us_per_step={k: v * 1e3 / steps for k, v in floor.items()},
+        flop_bound_ms=10.0 * steps * 100489 / F32_OPS_PER_S * 1e3)
+
     # K1: identical indices on tie-free (continuous random) inputs. Each of
     # the m steps updates the running minimum of every valid point: 3 sub,
     # 3 mul, 2 add, 1 min and 1 compare
@@ -236,16 +255,25 @@ def phase_kernels(dev, gen):
             bad = int((got != ref).any(dim=1).sum())
             raise AssertionError(f"K1 fps [{b},{n}]->{m}: {bad} clouds differ")
         err = float((got.long() - ref.long()).abs().max())
+        ms = cuda_ms(lambda: fps.fps(xyz, m, valid), 3)
         rec_fps.add(f"[{b},{n}]->{m}" + (f" valid {n_valid}" if n_valid else ""),
-                    err, cuda_ms(lambda: fps.fps(xyz, m, valid), 3),
-                    cuda_ms(lambda: fps.fps_reference(xyz, m, valid), 1),
+                    err, ms, cuda_ms(lambda: fps.fps_reference(xyz, m, valid), 1),
                     ops=10.0 * b * m * (n_valid or n),
-                    moved=nbytes(xyz, got) + (0 if valid is None else nbytes(valid)))
+                    moved=nbytes(xyz, got) + (0 if valid is None else nbytes(valid)),
+                    cluster=fps.cluster_size(n), us_per_step=ms * 1e3 / m)
 
     # K2: identical except rows with a near-tie at the k-th place. Each
     # (query, point) pair: 3 sub, 3 mul, 2 add and 1 compare
-    for b, m, n, k, self_q in KNN_SHAPES:
-        pts = cloud(b, n, 3)
+    from toothgroupnetwork_tpu_torch.ops.cells import spatial_sort_perm
+
+    clouds = {}
+    for b, m, n, k, self_q, sort in KNN_SHAPES:
+        if sort:    # the same points as the shape's first cloud, sorted
+            pts = clouds[(b, n)]
+            pts = pts[:, torch.from_numpy(spatial_sort_perm(pts[0].cpu().numpy()))
+                      .to(dev)].contiguous()
+        else:
+            pts = clouds.setdefault((b, n), cloud(b, n, 3))
         qry = pts if self_q else cloud(b, m, 3)
         gi, gd = knn.knn_select(qry, pts, k)
         ri, rd = knn.knn_select_reference(qry, pts, k + 1)
@@ -258,7 +286,7 @@ def phase_kernels(dev, gen):
                                  f"{int((row_bad & ~near_tie).sum())} rows differ")
         ok = ~row_bad
         err = float((gd - rd[..., :k]).abs()[ok].max())
-        rec_knn.add(f"[{b},{m}]x[{b},{n}] k={k}", err,
+        rec_knn.add(f"[{b},{m}]x[{b},{n}] k={k}" + (" sorted" if sort else ""), err,
                     cuda_ms(lambda: knn.knn_select(qry, pts, k), 3),
                     cuda_ms(lambda: knn.knn_select_reference(qry, pts, k), 1),
                     ops=9.0 * b * m * n,

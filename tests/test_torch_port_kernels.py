@@ -71,6 +71,79 @@ class TestKernelsOnCard:
         assert torch.equal(got, fps.fps_reference(xyz, 16, mask))
         assert (got[1] == 0).all()
 
+    @pytest.mark.parametrize("case", ["unmasked_100489", "beyond_smem",
+                                      "duplicates", "invalid_and_exhausted",
+                                      "crops_masked"])
+    def test_fps_cluster(self, cuda_device, gen, case):
+        """K1's cluster partitions equal to the twin: an N that is not a
+        multiple of the cluster size (the mesh-prep launch), slices beyond
+        16 CTAs' shared memory (the global range), exact ties across CTA
+        boundaries, an all-invalid cloud beside an exhausted one across
+        CTAs, and the 16 crops with a mask."""
+        valid = None
+        if case == "unmasked_100489":
+            xyz, m = _cloud(gen, 1, 100489, 3, device=cuda_device), 24000
+        elif case == "beyond_smem":
+            xyz, m = _cloud(gen, 1, 300000, 3, device=cuda_device), 2000
+        elif case == "duplicates":
+            uniq = _cloud(gen, 1, 500, 3, device=cuda_device)
+            pick = torch.from_numpy(gen.integers(0, 500, 40000)).to(cuda_device)
+            xyz, m = uniq[:, pick].contiguous(), 3000
+        elif case == "invalid_and_exhausted":
+            xyz, m = _cloud(gen, 2, 40000, 3, device=cuda_device), 400
+            valid = torch.zeros((2, 40000), dtype=torch.bool, device=cuda_device)
+            valid[1, ::211] = True             # 190 valid points over 16 CTAs
+        else:
+            xyz, m = _cloud(gen, 16, 3072, 3, device=cuda_device), 768
+            valid = torch.from_numpy(gen.random((16, 3072)) > 0.2).to(cuda_device)
+        got = fps.fps(xyz, m, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fps.fps_reference(xyz, m, valid))
+        if case == "invalid_and_exhausted":
+            assert (got[0] == 0).all()
+            assert valid[1, got[1].long()].all()
+
+    def test_fps_chain_floor(self, cuda_device):
+        """The chain-only launches run at every cluster size, both ways."""
+        for c in (1, 7, 16):
+            for pull in (False, True):
+                out = fps.chain_floor(50, c, cuda_device, pull=pull)
+                torch.cuda.synchronize()
+                assert ((out >= 0) & (out < c)).all()
+
+    @pytest.mark.parametrize("k", [1, 24, 36, 63, 64])
+    @pytest.mark.parametrize("case", ["duplicates", "sorted_self", "m_ne_n",
+                                      "bias"])
+    def test_knn_warp_select(self, cuda_device, gen, case, k):
+        """K2 equal to its twin: exact ties across lanes, warps and tiles
+        (300 points, each ~17 times), a spatially sorted self-query (the
+        seed window is its own neighbourhood), M != N, and masked points."""
+        bias = None
+        if case == "duplicates":
+            uniq = _cloud(gen, 2, 300, 3, device=cuda_device)
+            pick = torch.from_numpy(gen.integers(0, 300, 5000)).to(cuda_device)
+            pts = uniq[:, pick].contiguous()
+            qry = pts
+        elif case == "sorted_self":
+            u = gen.uniform(-1, 1, (6000, 2))
+            xyz = np.stack([u[:, 0], 0.3 * u[:, 0] ** 2 + 0.2 * u[:, 1] ** 2,
+                            u[:, 1]], 1).astype(np.float32)
+            xyz = xyz[cells.spatial_sort_perm(xyz)]
+            pts = torch.from_numpy(np.ascontiguousarray(xyz)).to(cuda_device)[None]
+            qry = pts
+        elif case == "m_ne_n":
+            pts = _cloud(gen, 2, 5000, 3, device=cuda_device)
+            qry = _cloud(gen, 2, 700, 3, device=cuda_device)
+        else:
+            pts = _cloud(gen, 2, 3000, 3, device=cuda_device)
+            qry = pts
+            bias = torch.where(torch.from_numpy(gen.random((2, 3000)) > 0.5),
+                               0.0, 1e10).to(torch.float32).to(cuda_device)
+        gi, gd = knn.knn_select(qry, pts, k, bias)
+        ri, rd = knn.knn_select_reference(qry, pts, k, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, ri) and torch.equal(gd, rd)
+
     @pytest.mark.parametrize("k", [1, 3, 24, 36, 64])
     def test_knn(self, cuda_device, gen, k):
         pts = _cloud(gen, 2, 3000, 3, device=cuda_device)
@@ -86,6 +159,18 @@ class TestKernelsOnCard:
         q = _cloud(gen, 2, 50, 3, device=cuda_device)
         gi, gd = knn.knn_select(q, pts, 24)
         ri, rd = knn.knn_select_reference(q, pts, 24)
+        assert torch.equal(gi, ri) and torch.equal(gd, rd)
+        assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
+
+    @pytest.mark.parametrize("k", [24, 64])
+    def test_knn_tail_bias(self, cuda_device, gen, k):
+        """The k > n tail beside masked points, both list banks."""
+        pts = _cloud(gen, 2, 10, 3, device=cuda_device)
+        q = _cloud(gen, 2, 50, 3, device=cuda_device)
+        bias = torch.zeros((2, 10), device=cuda_device)
+        bias[:, ::3] = 1e10
+        gi, gd = knn.knn_select(q, pts, k, bias)
+        ri, rd = knn.knn_select_reference(q, pts, k, bias)
         assert torch.equal(gi, ri) and torch.equal(gd, rd)
         assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
 

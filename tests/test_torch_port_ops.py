@@ -108,6 +108,22 @@ class TestFps:
         got = farthest_point_sample(_t(xyz), 32, _t(mask)).numpy()
         np.testing.assert_array_equal(got, ref)
 
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_twin_on_duplicates(self, rng, masked):
+        """The plain twin against the JAX package on a cloud of exact
+        duplicates (80 points, each ~5 times, shuffled): every step's
+        argmax is an exact tie, broken to the lowest index, and past the
+        80th sample the running minimum is 0 everywhere (repeats). The
+        kernel is held to this twin on the card (test_torch_port_kernels)."""
+        uniq = _cloud(rng, 2, 80, 3)
+        xyz = np.take_along_axis(uniq, rng.integers(0, 80, (2, 400, 1)), axis=1)
+        mask = rng.random((2, 400)) > 0.3 if masked else None
+        jm = None if mask is None else jnp.asarray(mask)
+        ref = np.asarray(jax_fps(jnp.asarray(xyz), 120, jm))
+        got = fps.fps_reference(_t(xyz), 120,
+                                None if mask is None else _t(mask)).numpy()
+        np.testing.assert_array_equal(got, ref)
+
 
 class TestKnn:
     @pytest.mark.parametrize("masked", [False, True])
@@ -148,6 +164,23 @@ class TestKnn:
         got_i, got_d = knn_points(_t(query), _t(pts), 5)
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
         np.testing.assert_allclose(got_d.numpy(), np.asarray(ref_d), atol=1e-5)
+
+    @pytest.mark.parametrize("self_query", [False, True])
+    def test_select_twin_on_duplicates(self, rng, self_query):
+        """knn_select_reference against the JAX package's knn_points on a
+        cloud of exact duplicates (60 points, each ~5 times) with a mask:
+        ties at and across the k-th place go to the lower index in both."""
+        uniq = _cloud(rng, 2, 60, 3)
+        pts = np.take_along_axis(uniq, rng.integers(0, 60, (2, 300, 1)), axis=1)
+        query = pts if self_query else np.take_along_axis(
+            uniq, rng.integers(0, 60, (2, 90, 1)), axis=1)
+        mask = rng.random((2, 300)) > 0.25
+        ref_i, _ = jax_knn(jnp.asarray(query), jnp.asarray(pts), 12, None,
+                           jnp.asarray(mask), need_dist=False)
+        bias = torch.where(_t(mask), 0.0, 1e10).to(torch.float32)
+        got_i, got_d = knn.knn_select_reference(_t(query), _t(pts), 12, bias)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+        assert (got_d[..., 1:] >= got_d[..., :-1]).all()
 
     def test_select_chunks_agree(self, rng):
         q, p = _cloud(rng, 1, 300, 3), _cloud(rng, 1, 200, 3)
@@ -324,6 +357,12 @@ class TestWrappers:
         knn.knn_select(xyz, xyz, 4)
         assert (fps.fps.launches, knn.knn_select.launches,
                 attention.fused_vector_attention_packed_x.launches) == before
+
+    @pytest.mark.parametrize("n,size", [(93, 1), (2048, 1), (2049, 2), (3072, 2),
+                                        (24000, 12), (100489, 16), (300000, 16)])
+    def test_fps_cluster_size(self, n, size):
+        """K1's cluster follows N, from 1 CTA to 16."""
+        assert fps.cluster_size(n) == size
 
     def test_other_devices_raise(self):
         meta = torch.empty((1, 8, 3), device="meta")

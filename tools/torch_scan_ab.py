@@ -12,7 +12,8 @@ labels and instances on every scan, and the median wall and per-phase
 seconds of the steady calls of each checkout, beside the card's nvidia-smi
 name and power limit. Each process also times the fused attention kernel K3
 (float32, CUDA events, mean of 5 calls after one) at chip_smoke's three
-ATTENTION_SHAPES on the same random inputs. Needs one CUDA card; exits
+ATTENTION_SHAPES, and K1 and K2 (mean of 3 after one) at three main-path
+shapes each, on the same random inputs. Needs one CUDA card; exits
 non-zero without one.
 """
 
@@ -53,10 +54,23 @@ for _ in range(int(steady)):
 from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
     PointTransformerLayer)
 from toothgroupnetwork_tpu_torch.ops import knn_self
-from toothgroupnetwork_tpu_torch.ops.kernels import attention
+from toothgroupnetwork_tpu_torch.ops.kernels import attention, fps, knn
 from toothgroupnetwork_tpu_torch.utils.weights import randomize_
 
-res["k3_ms"] = {}
+
+def ms(call, reps):
+    call()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        call()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+res["k3_ms"], res["k1_ms"], res["k2_ms"] = {}, {}, {}
 gen = torch.Generator().manual_seed(0)
 for b, n, kk, c in ((1, 24000, 36, 32), (16, 3072, 36, 32), (1, 93, 24, 512)):
     layer = randomize_(PointTransformerLayer(c, device="cuda"), gen)
@@ -66,16 +80,15 @@ for b, n, kk, c in ((1, 24000, 36, 32), (16, 3072, 36, 32), (1, 93, 24, 512)):
     with torch.no_grad():
         params = attention.fold_attention_params(layer)
         q = layer.linear_q(x).reshape(b * n, c).contiguous()
-        call = lambda: attention.fused_vector_attention_packed_x(x, p, idx, q, params)
-        call()
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        for _ in range(5):
-            call()
-        ev[1].record()
-        ev[1].synchronize()
-    res["k3_ms"][f"B{b}/N{n}/K{kk}/C{c}"] = ev[0].elapsed_time(ev[1]) / 5
+        res["k3_ms"][f"B{b}/N{n}/K{kk}/C{c}"] = ms(
+            lambda: attention.fused_vector_attention_packed_x(x, p, idx, q, params), 5)
+for b, n, m in ((1, 100489, 24000), (1, 24000, 6000), (16, 3072, 768)):
+    p = torch.randn((b, n, 3), generator=gen).cuda()
+    res["k1_ms"][f"[{b},{n}]->{m}"] = ms(lambda: fps.fps(p, m), 3)
+for b, m, n, kk in ((1, 24000, 24000, 36), (16, 3072, 3072, 36), (1, 6000, 24000, 24)):
+    p = torch.randn((b, n, 3), generator=gen).cuda()
+    q = p if m == n else torch.randn((b, m, 3), generator=gen).cuda()
+    res["k2_ms"][f"[{b},{m}]x[{b},{n}] k={kk}"] = ms(lambda: knn.knn_select(q, p, kk), 3)
 json.dump(res, open(out, "w"))
 """
 
@@ -115,7 +128,8 @@ def main() -> int:
             res = json.loads(out.read_text())
             runs.append((name, res))
             print(json.dumps({"run": i, "checkout": name, "calls": res["calls"],
-                              "k3_ms": res["k3_ms"], "card": smi}), flush=True)
+                              "k3_ms": res["k3_ms"], "k1_ms": res["k1_ms"],
+                              "k2_ms": res["k2_ms"], "card": smi}), flush=True)
     same = all(r["outputs"] == runs[0][1]["outputs"] for _, r in runs)
     medians = {}
     for name in ("other", "this"):

@@ -1,4 +1,4 @@
-// K2: exact k-nearest-neighbour selection, k <= 64, one thread per query.
+// K2: exact k-nearest-neighbour selection, k <= 64, one warp per query.
 //
 // Replaces toothgroupnetwork_tpu/ops/pallas/knn_kernel.py:knn_pallas_select
 // (_knn_kernel). On the TPU that kernel is opt-in and the default selection is
@@ -14,48 +14,159 @@
 //     unfilled-heap semantics), NOT a repeat of the last neighbour.
 //
 // What bounds it on the H100: the M x N distance stream (24000 x 24000 at the
-// stage-0 self-kNN). It never materialises [M, N] (2.3 GB there): points are
-// streamed through shared-memory tiles that every thread of the block reads as
-// broadcasts, and each thread keeps its running best-k as a sorted list
-// (insertion sort, per-thread local memory that stays in L1). Most candidates
-// are rejected by one compare against the current k-th distance, so the cost
-// is ~N compares per query. Distances use the _rn intrinsics in the plain
-// twin's order, so the kernel and the twin select identically.
+// stage-0 self-kNN, 9 operations a pair) and the selection's latency. One
+// query per thread would give 24000 threads (under 10 % of the card's warp
+// slots) with the best-k in local memory, and a scan in index order is slow
+// on a spatially sorted cloud, where the near candidates come late and most
+// of them are inserted.
+//
+// The design: one warp per query, kWarps queries a block sharing
+// shared-memory tiles of kTile candidates (x, y, z and |p|^2 as one float4,
+// and the bias). Each lane computes the distance of one candidate of 32, bit-equal to
+// the plain twin (the _rn intrinsics in its order). Keys are (d2, index) pairs
+// compared lexicographically, so the result is the contract's whatever order
+// the candidates are visited in. A ballot of key < k-th key keeps the
+// candidates that can enter; each survivor, lowest lane first, is inserted
+// into a warp-resident sorted list of 64 keys, two register slots a lane
+// (slot j in lane j % 32, bank j / 32): the insert position is a ballot over
+// the list, the shift a __shfl_up_sync with lane 31 of the first bank carried
+// into lane 0 of the second. No local memory is used. Because the order is
+// free, each warp first scans the kSeed candidates around index row * N / M
+// (a self-query's own index neighbourhood) and then the rest: on a spatially
+// sorted cloud the k-th distance is then near its final value after the first
+// two batches, and after warm-up an insert is rare (~k (1 + ln(N / k)) of N
+// candidates in a random order, fewer in a sorted one).
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxK = 64;
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;
 constexpr int kTile = 1024;
+constexpr int kSeed = 64;
+constexpr int kUnroll = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void knn_kernel(const float* __restrict__ q,
-                           const float* __restrict__ p,
-                           const float* __restrict__ bias,
-                           int m, int n, int k,
-                           int* __restrict__ out_idx,
-                           float* __restrict__ out_d2) {
-    __shared__ float s_x[kTile], s_y[kTile], s_z[kTile], s_p2[kTile], s_b[kTile];
+__device__ __forceinline__ bool key_less(float ad, int ai, float bd, int bi) {
+    return ad < bd || (ad == bd && ai < bi);
+}
+
+// d2 of one (query, candidate) pair in the plain twin's order.
+__device__ __forceinline__ float pair_d2(float qx, float qy, float qz, float q2,
+                                         float4 p, float bias) {
+    const float cross = __fadd_rn(__fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
+                                  __fmul_rn(qz, p.z));
+    const float e = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, cross)), p.w);
+    return __fadd_rn(fmaxf(e, 0.f), bias);
+}
+
+// The warp's sorted list of 64 (d2, index) keys: slot j lives in lane j % 32
+// of bank a (j < 32) or bank b. (kd, ki) is the k-th key, the entry bar.
+struct WarpList {
+    float ad, bd, kd;
+    int ai, bi, ki;
+
+    __device__ __forceinline__ void init() {
+        ad = bd = kd = CUDART_INF_F;
+        ai = bi = ki = INT_MAX;
+    }
+
+    // insert (d, i), which is below the k-th key, keeping the list sorted
+    __device__ __forceinline__ void insert(float d, int i, int k, int lane) {
+        const int pos = __popc(__ballot_sync(kFull, key_less(ad, ai, d, i)))
+                        + __popc(__ballot_sync(kFull, key_less(bd, bi, d, i)));
+        const float up_ad = __shfl_up_sync(kFull, ad, 1);
+        const int up_ai = __shfl_up_sync(kFull, ai, 1);
+        float up_bd = __shfl_up_sync(kFull, bd, 1);
+        int up_bi = __shfl_up_sync(kFull, bi, 1);
+        const float carry_d = __shfl_sync(kFull, ad, 31);
+        const int carry_i = __shfl_sync(kFull, ai, 31);
+        if (lane == 0) {
+            up_bd = carry_d;
+            up_bi = carry_i;
+        }
+        if (lane > pos) {
+            ad = up_ad;
+            ai = up_ai;
+        } else if (lane == pos) {
+            ad = d;
+            ai = i;
+        }
+        if (lane + 32 > pos) {
+            bd = up_bd;
+            bi = up_bi;
+        } else if (lane + 32 == pos) {
+            bd = d;
+            bi = i;
+        }
+        if (k <= 32) {
+            kd = __shfl_sync(kFull, ad, k - 1);
+            ki = __shfl_sync(kFull, ai, k - 1);
+        } else {
+            kd = __shfl_sync(kFull, bd, k - 33);
+            ki = __shfl_sync(kFull, bi, k - 33);
+        }
+    }
+
+    // offer each lane's candidate (d, i) where ok; survivors of the ballot go
+    // in lowest lane first, each checked against the bar as it stands then
+    __device__ __forceinline__ void offer(bool ok, float d, int i, int k, int lane) {
+        unsigned mask = __ballot_sync(kFull, ok && key_less(d, i, kd, ki));
+        while (mask != 0) {
+            const int src = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const float cd = __shfl_sync(kFull, d, src);
+            const int ci = __shfl_sync(kFull, i, src);
+            if (key_less(cd, ci, kd, ki)) insert(cd, ci, k, lane);
+        }
+    }
+};
+
+__global__ void __launch_bounds__(kWarps * 32)
+knn_kernel(const float* __restrict__ q, const float* __restrict__ p,
+           const float* __restrict__ bias, int m, int n, int k,
+           int* __restrict__ out_idx, float* __restrict__ out_d2) {
+    __shared__ float4 s_p[kTile];   // x, y, z, |p|^2
+    __shared__ float s_b[kTile];
     const size_t b = blockIdx.y;
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const bool active = row < m;   // warp-uniform; idle warps still load tiles
     q += b * (size_t)m * 3;
     p += b * (size_t)n * 3;
     if (bias != nullptr) bias += b * (size_t)n;
 
     float qx = 0.f, qy = 0.f, qz = 0.f;
-    if (row < m) {
+    if (active) {
         qx = q[3 * (size_t)row];
         qy = q[3 * (size_t)row + 1];
         qz = q[3 * (size_t)row + 2];
     }
     const float q2 = sq3_rn(qx, qy, qz);
 
-    float best_d[kMaxK];
-    int best_i[kMaxK];
-    for (int j = 0; j < k; ++j) {
-        best_d[j] = CUDART_INF_F;
-        best_i[j] = 0;
+    WarpList list;
+    list.init();
+
+    // the seed window [ws, we): the candidates around index row * n / m
+    int ws = 0, we = 0;
+    if (active) {
+        const int centre = (int)((long long)row * n / m);
+        ws = max(0, min(centre - kSeed / 2, n - kSeed));
+        we = min(n, ws + kSeed);
+        for (int t0 = ws; t0 < we; t0 += 32) {
+            const int t = t0 + lane;
+            const bool ok = t < we;
+            float d = 0.f;
+            if (ok) {
+                const float x = p[3 * (size_t)t];
+                const float y = p[3 * (size_t)t + 1];
+                const float z = p[3 * (size_t)t + 2];
+                d = pair_d2(qx, qy, qz, q2, make_float4(x, y, z, sq3_rn(x, y, z)),
+                            bias != nullptr ? bias[t] : 0.f);
+            }
+            list.offer(ok, d, t, k, lane);
+        }
     }
 
     for (int base = 0; base < n; base += kTile) {
@@ -65,40 +176,38 @@ __global__ void knn_kernel(const float* __restrict__ q,
             const float x = p[3 * (size_t)(base + t)];
             const float y = p[3 * (size_t)(base + t) + 1];
             const float z = p[3 * (size_t)(base + t) + 2];
-            s_x[t] = x;
-            s_y[t] = y;
-            s_z[t] = z;
-            s_p2[t] = sq3_rn(x, y, z);
+            s_p[t] = make_float4(x, y, z, sq3_rn(x, y, z));
             s_b[t] = bias != nullptr ? bias[base + t] : 0.f;
         }
         __syncthreads();
-        if (row >= m) continue;
-        for (int t = 0; t < len; ++t) {
-            const float cross = __fadd_rn(
-                __fadd_rn(__fmul_rn(qx, s_x[t]), __fmul_rn(qy, s_y[t])),
-                __fmul_rn(qz, s_z[t]));
-            const float e = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, cross)), s_p2[t]);
-            const float d = __fadd_rn(fmaxf(e, 0.f), s_b[t]);
-            if (d < best_d[k - 1]) {
-                // strict compares keep earlier (lower) indices ahead on ties
-                int j = k - 1;
-                while (j > 0 && best_d[j - 1] > d) {
-                    best_d[j] = best_d[j - 1];
-                    best_i[j] = best_i[j - 1];
-                    --j;
-                }
-                best_d[j] = d;
-                best_i[j] = base + t;
+        if (!active) continue;
+        for (int t0 = 0; t0 < len; t0 += 32 * kUnroll) {
+            float d[kUnroll];
+            bool ok[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int t = t0 + 32 * u + lane;
+                const int g = base + t;
+                ok[u] = t < len && (g < ws || g >= we);   // the window is done
+                d[u] = ok[u] ? pair_d2(qx, qy, qz, q2, s_p[t], s_b[t]) : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                list.offer(ok[u], d[u], base + t0 + 32 * u + lane, k, lane);
             }
         }
     }
-    if (row >= m) return;
+    if (!active) return;
     int* oi = out_idx + (b * (size_t)m + row) * k;
     float* od = out_d2 + (b * (size_t)m + row) * k;
-    for (int j = 0; j < k; ++j) {
-        const bool filled = j < n;  // k > n: index 0 at 1e10
-        oi[j] = filled ? best_i[j] : 0;
-        od[j] = filled ? best_d[j] : 1e10f;
+    // k > n: index 0 at 1e10 past the n real entries
+    if (lane < k) {
+        oi[lane] = lane < n ? list.ai : 0;
+        od[lane] = lane < n ? list.ad : 1e10f;
+    }
+    if (lane + 32 < k) {
+        oi[lane + 32] = lane + 32 < n ? list.bi : 0;
+        od[lane + 32] = lane + 32 < n ? list.bd : 1e10f;
     }
 }
 
@@ -110,7 +219,7 @@ extern "C" int tgn_knn(const float* q, const float* p, const float* bias, int b,
                        int m, int n, int k, int* out_idx, float* out_d2,
                        cudaStream_t stream) {
     if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
-    dim3 grid((m + kThreads - 1) / kThreads, b);
-    knn_kernel<<<grid, kThreads, 0, stream>>>(q, p, bias, m, n, k, out_idx, out_d2);
+    dim3 grid((m + kWarps - 1) / kWarps, b);
+    knn_kernel<<<grid, kWarps * 32, 0, stream>>>(q, p, bias, m, n, k, out_idx, out_d2);
     return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "tgn_fps": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    "tgn_fps": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+    "tgn_fps_chain": ([_I, _I, _I, _I, _P, _P], _I),
     "tgn_knn": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
     "tgn_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P], _I),
     "tgn_attention_gathered": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P], _I),

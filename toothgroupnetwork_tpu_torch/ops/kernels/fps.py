@@ -2,9 +2,12 @@
 
 Replaces toothgroupnetwork_tpu/ops/pallas/fps_kernel.py: ``fps_pallas``
 (``_fps_folded_kernel``), ``fps_pallas_multicloud`` and ``fps_pallas_batched``
-with one kernel, one thread block per cloud. The source note in csrc/fps.cu
-gives the contract, what bounds the kernel on the H100 and what its design
-does about it.
+with one kernel. What bounds it on the H100 is the chain of dependent
+argmax steps, not the arithmetic; so each cloud runs on a thread-block
+cluster of :func:`cluster_size` CTAs that hold its slices in shared memory
+and agree on each step's winner through distributed shared memory, one
+cluster barrier a step. The source note in csrc/fps.cu gives the contract
+and the design.
 """
 
 from __future__ import annotations
@@ -13,6 +16,16 @@ import torch
 
 from . import build
 from ._launch import on_cpu, require, stream_of
+
+MAX_CLUSTER = 16
+# points per CTA the cluster size aims at: a step's update of a slice this
+# size takes about as long as the step's barrier and exchange
+POINTS_PER_CTA = 2048
+
+
+def cluster_size(n: int) -> int:
+    """CTAs per cloud for an ``n``-point cloud: 1 up to 16 as ``n`` grows."""
+    return max(1, min(MAX_CLUSTER, -(-n // POINTS_PER_CTA)))
 
 
 def fps(xyz: torch.Tensor, n_samples: int,
@@ -36,14 +49,29 @@ def fps(xyz: torch.Tensor, n_samples: int,
         out = torch.empty((b, n_samples), dtype=torch.int32, device=dev)
         status = lib.tgn_fps(xyz.data_ptr(),
                              None if valid is None else valid.data_ptr(),
-                             b, n, n_samples, dist.data_ptr(), out.data_ptr(),
-                             stream_of(dev))
+                             b, n, n_samples, cluster_size(n), dist.data_ptr(),
+                             out.data_ptr(), stream_of(dev))
         build.check(status, "tgn_fps")
     fps.launches += 1
     return out
 
 
 fps.launches = 0
+
+
+def chain_floor(steps: int, cluster: int, device: torch.device,
+                pull: bool = False) -> torch.Tensor:
+    """Run K1's chain alone on one cluster of ``cluster`` CTAs: ``steps``
+    steps of K1's candidate exchange with no points, or with ``pull`` of the
+    barrier design (one cluster barrier a step, then DSMEM reads). A
+    measurement of K1's floor; no model path calls it. Returns the int32
+    ``[1, steps]`` winners."""
+    with torch.cuda.device(device):
+        lib = build.library()
+        out = torch.empty((1, steps), dtype=torch.int32, device=device)
+        build.check(lib.tgn_fps_chain(1, steps, cluster, int(pull), out.data_ptr(),
+                                      stream_of(device)), "tgn_fps_chain")
+    return out
 
 
 def fps_reference(xyz: torch.Tensor, n_samples: int,

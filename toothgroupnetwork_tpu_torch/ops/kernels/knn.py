@@ -2,10 +2,15 @@
 
 Replaces toothgroupnetwork_tpu/ops/pallas/knn_kernel.py:knn_pallas_select
 (``_knn_kernel``). The contract is that of ``knn_points`` on CPU in the JAX
-package (csrc/knn.cu states it, with the kernel's bound and design): sorted
-ascending by (d2, index), masked points biased by 1e10, and for k > n a tail
-of index 0 at d2 = 1e10. The self-first dedup and the exact re-score stay in
-plain torch (ops/knn.py), as they stay in XLA around the Pallas kernel.
+package: sorted ascending by (d2, index), masked points biased by 1e10, and
+for k > n a tail of index 0 at d2 = 1e10. What bounds it on the H100 is the
+M x N distance stream and the selection's latency; the kernel runs one warp
+per query over shared-memory tiles of candidates, a ballot against the k-th
+(d2, index) key filtering them into a warp-resident sorted list, and seeds
+each query's list from the candidates around its own index, so its time no
+longer follows the cloud's order (csrc/knn.cu gives the design). The
+self-first dedup and the exact re-score stay in plain torch (ops/knn.py), as
+they stay in XLA around the Pallas kernel.
 """
 
 from __future__ import annotations
