@@ -48,6 +48,21 @@ def _within_one_bf16_ulp(got, ref, atol: float = 1e-4) -> bool:
     return bool(((got - ref).abs() <= ulp + atol).all())
 
 
+# K3 at the widths of the main path (B, N, K, C): the fps model's deeper
+# stages and crops, cut in N; 12 points with K = 24 is the deepest crop
+# level's k > n tail; 601, 301 and 155 rows are not multiples of R
+MAIN_PATH_K3 = [(1, 601, 24, 64), (1, 301, 24, 128), (1, 155, 24, 256),
+                (16, 48, 24, 256), (16, 12, 24, 512), (16, 192, 24, 128)]
+
+
+def _knn_idx(gen, b, n, kk, device):
+    """Random in-cloud indices; where K > N the tail repeats index 0, as the
+    kNN's k > n tail does, and the last neighbour is index 0 anyway."""
+    idx = gen.integers(0, n, (b, n, kk)).astype(np.int32)
+    idx[..., min(n, kk - 1):] = 0
+    return torch.from_numpy(idx).to(device)
+
+
 @pytest.mark.cuda
 class TestKernelsOnCard:
     @pytest.mark.parametrize("b,n,m", [(3, 2000, 300), (1, 24000, 600),
@@ -176,15 +191,16 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 500, 36, 16),
                                           (1, 93, 24, 512), (2, 64, 36, 512),
-                                          (2, 300, 10, 16)])
+                                          (2, 300, 10, 16)] + MAIN_PATH_K3)
     def test_attention(self, cuda_device, gen, b, n, kk, c):
+        """K3 (projection + attention over the gathered projections) within
+        1e-4 of its twin, at the main path's widths, with a k > n tail and
+        row counts that R (rows a CTA) does not divide."""
         port = PointTransformerLayer(c, device=cuda_device)
         randomize_(port, torch.Generator().manual_seed(0))
         p = _cloud(gen, b, n, 3, device=cuda_device) * 0.2
         x = _cloud(gen, b, n, c, device=cuda_device) * 0.2
-        idx = torch.from_numpy(gen.integers(0, n, (b, n, kk)).astype(np.int32)
-                               ).to(cuda_device)
-        idx[..., -1] = 0                     # the k > n tail repeats index 0
+        idx = _knn_idx(gen, b, n, kk, cuda_device)
         with torch.no_grad():
             params = attention.fold_attention_params(port)
             q = port.linear_q(x).reshape(-1, c).contiguous()
@@ -196,7 +212,7 @@ class TestKernelsOnCard:
 
 
     @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 93, 24, 512),
-                                          (2, 64, 36, 512)])
+                                          (2, 64, 36, 512)] + MAIN_PATH_K3)
     def test_attention_bf16(self, cuda_device, gen, b, n, kk, c):
         """K3 on bf16 x and q (bf16 out) within one bf16 ulp (+ 1e-4) of its
         twin."""
@@ -204,8 +220,7 @@ class TestKernelsOnCard:
         randomize_(port, torch.Generator().manual_seed(0))
         p = _cloud(gen, b, n, 3, device=cuda_device) * 0.2
         x = (_cloud(gen, b, n, c, device=cuda_device) * 0.2).bfloat16()
-        idx = torch.from_numpy(gen.integers(0, n, (b, n, kk)).astype(np.int32)
-                               ).to(cuda_device)
+        idx = _knn_idx(gen, b, n, kk, cuda_device)
         with torch.no_grad():
             params = attention.fold_attention_params(port, torch.bfloat16)
             q = port.linear_q(x.float()).reshape(-1, c).bfloat16().contiguous()
@@ -214,6 +229,46 @@ class TestKernelsOnCard:
                 x, p, idx, q, params)
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16 and _within_one_bf16_ulp(got, ref)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("m,cin,c", [(24000, 32, 32), (6000, 64, 64),
+                                         (1500, 128, 128), (375, 256, 256),
+                                         (93, 512, 512), (1000, 16, 16),
+                                         (77, 40, 24)])
+    def test_project_kv(self, cuda_device, gen, m, cin, c, dtype):
+        """tgn_project_kv within 1e-5 of project_kv_reference: float32 rows
+        on FMA units, bf16 rows on the tensor cores (bf16-rounded weights,
+        exact products); ragged rows, columns and depths padded with zeros."""
+        port = PointTransformerLayer(c, device=cuda_device)
+        randomize_(port, torch.Generator().manual_seed(0))
+        params = attention.fold_attention_params(port)
+        if cin != c:
+            params["wk"] = _cloud(gen, cin, c, device=cuda_device) / cin ** 0.5
+            params["wv"] = _cloud(gen, cin, c, device=cuda_device) / cin ** 0.5
+        x = (_cloud(gen, m, cin, device=cuda_device) * 0.5).to(dtype)
+        before = attention.project_kv.launches
+        got = attention.project_kv(x, params)
+        torch.cuda.synchronize()
+        assert attention.project_kv.launches == before + 1
+        ref = attention.project_kv_reference(x, params)
+        assert got.dtype == torch.float32 and got.shape == (m, 2 * c)
+        assert (got - ref).abs().max().item() <= 1e-5
+
+    def test_attention_counts_one_call(self, cuda_device, gen):
+        """K3's wrapper counts one call for its two kernels, project_kv one."""
+        port = PointTransformerLayer(32, device=cuda_device)
+        randomize_(port, torch.Generator().manual_seed(0))
+        x = _cloud(gen, 1, 100, 32, device=cuda_device)
+        idx = _knn_idx(gen, 1, 100, 8, cuda_device)
+        counts = (attention.fused_vector_attention_packed_x.launches,
+                  attention.project_kv.launches)
+        with torch.no_grad():
+            q = port.linear_q(x).reshape(-1, 32).contiguous()
+            attention.fused_vector_attention_packed_x(
+                x, _cloud(gen, 1, 100, 3, device=cuda_device), idx, q,
+                port.kernel_params())
+        assert (attention.fused_vector_attention_packed_x.launches,
+                attention.project_kv.launches) == (counts[0] + 1, counts[1] + 1)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 93, 24, 512),
@@ -312,7 +367,9 @@ class TestCellKernelsOnCard:
         assert got.dtype == torch.bfloat16
         assert torch.equal(got, cell_select.cell_select_x_reference(blk_x, pos))
 
-    @pytest.mark.parametrize("n,kk,c", [(2048, 36, 32), (1024, 24, 32)])
+    @pytest.mark.parametrize("n,kk,c", [(2048, 36, 32), (1024, 24, 32),
+                                        (2048, 36, 16), (1000, 36, 32),
+                                        (600, 24, 64), (296, 24, 128), (64, 24, 512)])
     def test_gathered_attention_bf16(self, cuda_device, gen, n, kk, c):
         """K6 on bf16 x_g and p_r (float32 q, weights and out) within 1e-4
         of its twin."""
@@ -336,7 +393,8 @@ class TestCellKernelsOnCard:
 
     @pytest.mark.parametrize("n,kk,c", [(2048, 36, 32), (2048, 36, 16),
                                         (1024, 24, 32), (64, 24, 512),
-                                        (512, 13, 16)])
+                                        (512, 13, 16), (1000, 36, 32), (600, 24, 64),
+                                        (296, 24, 128), (152, 24, 256)])
     def test_gathered_attention(self, cuda_device, gen, n, kk, c):
         """K6 within 1e-4 of its twin, on the rows K4/K5 select."""
         port = PointTransformerLayer(c, device=cuda_device)

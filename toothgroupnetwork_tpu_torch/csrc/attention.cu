@@ -1,10 +1,10 @@
-// K3 / K6 / K7: fused eval-mode point-transformer vector attention, one
-// block per row.
+// K3 / K6 / K7: fused eval-mode point-transformer vector attention, and
+// tgn_project_kv, the per-point k/v projection that K3 runs first.
 //
-// K3 (tgn_attention) replaces toothgroupnetwork_tpu/ops/pallas/
-// attention_kernel.py: fused_vector_attention_packed_x (_packed_x_kernel +
-// _packed_body) and fuses the neighbour gather as well. K6
-// (tgn_attention_gathered) replaces attention_kernel.py:
+// K3 (tgn_project_kv, then tgn_attention) replaces toothgroupnetwork_tpu/
+// ops/pallas/attention_kernel.py: fused_vector_attention_packed_x
+// (_packed_x_kernel + _packed_body) and fuses the neighbour gather as well.
+// K6 (tgn_attention_gathered) replaces attention_kernel.py:
 // fused_vector_attention (_attn_kernel): it takes the gathered rows x_g and
 // the relative positions p_r, as the cell-attention path produces them
 // (K4/K5, csrc/cell_select.cu). K7 (tgn_attention_projected) replaces
@@ -13,10 +13,11 @@
 // one kernel body; only the loader (a template parameter) differs.
 // BatchNorms folded as in fold_bn / fold_attention_params. For one query
 // row (b, n) with neighbours k < K:
-//   (0) load: K3 gathers x[b, j] and forms p[b, j] - p[b, n] for
-//       j = knn_idx[b, n, k]; K6 reads rows (b*N + n)*K + k of x_g and p_r;
-//       K7 reads those rows of k_g, v_g and p_r
-//   (1) k = x_g Wk + bk, v = x_g Wv + bv           (in-kernel; not in K7)
+//   (0) load: K3 reads rows j = knn_idx[b, n, k] of the projection kv
+//       [B*N, 2C] and forms p[b, j] - p[b, n]; K6 reads rows (b*N + n)*K + k
+//       of x_g and p_r; K7 reads those rows of k_g, v_g and p_r
+//   (1) k = x Wk + bk, v = x Wv + bv: K3 once per point (tgn_project_kv),
+//       K6 per gathered row inside the CTA, K7 not at all
 //   (2) pe = relu(p_r A0 + b0) A1 + b1        (A0/b0 carry the folded BN)
 //   (3) w = relu(s1 * (relu(s0 * (k - q + pe) + t0) W0 + c0) + t1) W1 + c1
 //   (4) softmax of w over the K neighbours, per channel group
@@ -30,46 +31,226 @@
 //   K6: x_g and p_r in T, q, weights and out float32
 //   K7: q, k_g, v_g and p_r in T, out float32
 // Reads in T are widened to float exactly; a bf16 store rounds to nearest.
+// The projection's bias is a float32 add after the float32 sum, as the JAX
+// body adds it after its dot; k and v stay float32 (preferred_element_type).
 //
-// What bounds it on the H100: the neighbour rows and the K-fold k/v
-// projection (2 K Cin C multiply-adds per row). The TPU kernel took the raw
-// gather x_g [B*N*K, Cin] from HBM; K3 fuses the gather, so the
-// [B*N*K, Cin] tensor (110 MB at B1/24000/K36/C32 in f32, 226 MB for 16
-// crops) and the relative positions are never written: each block reads K
-// rows of x (L2 hits: the whole x fits in L2) into shared memory and keeps
-// every per-neighbour intermediate there. K6 reads its K contiguous x_g rows
-// (K*Cin elements per block, streamed once from HBM); K7 reads K rows of
-// k_g and of v_g and does no projection, so it is bound by those 2*K*C
-// elements a row. The weights are read from global memory with consecutive
-// threads on consecutive output channels (coalesced, L1/L2 resident); at
-// C = 512 Wk + Wv are 2 MB and are not staged in shared memory. In the k/v
-// loop each thread keeps kKB = 4 neighbours' sums in registers, so one
-// weight load serves four multiply-adds (at B1/93/K24/C512 on an H100 that
-// took K3 from 5.3 to 1.5 ms; one neighbour per thread is latency-bound on
-// the weight loads). Shared memory per block is (C + K*Cin + 2*K*C + 3*K)
-// floats for K3/K6, 218 KB at the worst case K=36/C=512, and
-// (C + 2*K*cs + 2*K*C + 3*K) floats for K7; the launcher opts in above
-// 48 KB.
+// What bounds it on the H100, and what the design does about it:
+// * The k/v projection is the one large product: 4 Cin C operations a point
+//   (K3) or a gathered row (K6). K3 projects each point once, since
+//   k_g[j] = (x Wk + bk)[idx[j]]: tgn_project_kv is a 64 x 64 tile product
+//   into a float32 scratch kv [B*N, 2C] (6.1 MB at B1/24000/C32, L2
+//   resident for the attention launch that follows). The TPU kernel paid
+//   the K-fold work with its kron(I_K, W) dot, free on the MXU; on CUDA
+//   cores it was 4.4x (C32) to 9x (C512) the function's operations. K6's
+//   contract hands it K distinct rows, so its K-fold product is real: a CTA
+//   runs it as 64 x 64 tiles over its R*K rows with Wk|Wv staged in shared
+//   memory a chunk of 32 input channels at a time.
+//   bf16 rows run the tile product on the tensor cores (mma.sync m16n8k16,
+//   float32 accumulators). K3's weights are the bf16-rounded Wk/Wv of its
+//   contract, so each product is exact. K6's weights are float32: each is
+//   split into three bf16 pieces (hi + mid + lo, exact to float32's 24
+//   bits), three products a tile, so no float32 weight is rounded.
+//   float32 rows run a register-tiled FMA product (4 x 4 outputs a
+//   thread), never TF32.
+// * After the projection the layer is a chain of small steps per row. A CTA
+//   takes R query rows (R*K neighbour rows; R from the shapes, smaller when
+//   the launch would leave SMs idle) and stages the folded parameters of
+//   its channels once in shared memory; every step is one pass of all 256
+//   threads over the CTA's rows, so a row costs no barrier of its own:
+//   (2)+(3a) over (neighbour, channel), (3b) and (3c) over (neighbour,
+//   group), (4) one warp per (row, group) with shuffle max and sum, (5)
+//   over (row, channel). Step (3b) stays float32 on the CUDA cores: its
+//   input u is a float32 intermediate and rounding it for the tensor cores
+//   would break the float32 compute of the contract; at the main-path
+//   shapes it is under a tenth of the projection's operations.
+// * At C >= 256 a row alone fills a CTA, and B1/93/K24/C512 had 93 CTAs for
+//   132 SMs. The channels are split over a cluster of S = C/128 CTAs (<= 4):
+//   each projects, gathers and aggregates its C/S channels and sums its part
+//   of (3b); the parts are added in rank order through distributed shared
+//   memory (the same order in every CTA: deterministic, no atomics), and
+//   every CTA then runs (3c)-(4) for the whole row.
+// (v + pe) is recomputed in step (5) from kv (L2) and pe0 instead of kept,
+// so shared memory holds u [R*K, C/S] (K6: k|v) and [R*K, cs] twice.
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kKB = 4;  // neighbours per thread in the k/v loop
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;   // rows and columns of a projection tile
+constexpr int kDepth = 32;  // input channels staged at a time
+constexpr int kPadF = 4;    // float padding of a staged row (16-byte aligned)
+constexpr int kPadH = 8;    // bf16 padding: conflict-free fragment reads
+constexpr int kStageF32 = 2 * 4 * kDepth * (kTile + kPadF);
+constexpr int kStageBf16 = 2 * 4 * kTile * (kDepth + kPadH);  // x + 3 weight pieces
+constexpr int kStageBytes = kStageF32 > kStageBf16 ? kStageF32 : kStageBf16;
+
+// Column n of a CTA's slice of [k | v] (its cw channels of k, then the same
+// channels of v) -> column of Wk|Wv [Cin, 2C]; {c, c, 0} is the identity.
+struct Cols {
+    int c, cw, g0;
+    __device__ int operator()(int n) const { return n < cw ? g0 + n : c + g0 + n - cw; }
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b on the tensor cores: A 16x16 (row), B 16x8 (col), bf16, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One output tile of the projection, float32 rows: out[m * ldo + n] =
+// sum_i x[m * cin + i] W[i, cols(n)] + bias[cols(n)] for m < rows (<= 64)
+// and n0 <= n < min(n0 + 64, ncols); w is [Cin, 2C] row-major. Each thread
+// keeps 4 x 4 sums; x is staged transposed so both operands are float4
+// reads. Every thread of the CTA calls it.
+__device__ void tile_f32(const float* x, int rows, int cin, const float* w, int c2,
+                         Cols cols, const float* bias, float* out, int ldo, int n0,
+                         int ncols, unsigned char* stage) {
+    constexpr int ld = kTile + kPadF;
+    float* xs = reinterpret_cast<float*>(stage);  // [kDepth][ld], x transposed
+    float* ws = xs + kDepth * ld;                 // [kDepth][ld]
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+    float acc[4][4] = {};
+    for (int i0 = 0; i0 < cin; i0 += kDepth) {
+        __syncthreads();  // the previous chunk is consumed
+        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
+            const int m = e / kDepth, i = e % kDepth;
+            xs[i * ld + m] = (m < rows && i0 + i < cin) ? x[(size_t)m * cin + i0 + i] : 0.f;
+        }
+        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
+            const int i = e / kTile, n = e % kTile;
+            ws[i * ld + n] = (n0 + n < ncols && i0 + i < cin)
+                                 ? w[(size_t)(i0 + i) * c2 + cols(n0 + n)] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int i = 0; i < kDepth; ++i) {
+            const float4 a4 = *reinterpret_cast<const float4*>(xs + i * ld + ty * 4);
+            const float4 b4 = *reinterpret_cast<const float4*>(ws + i * ld + tx * 4);
+            const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+#pragma unroll
+                for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            const int m = ty * 4 + r, n = n0 + tx * 4 + s;
+            if (m < rows && n < ncols) out[(size_t)m * ldo + n] = acc[r][s] + bias[cols(n)];
+        }
+    }
+}
+
+// The same tile from bf16 rows on the tensor cores: wt holds kPieces bf16
+// pieces of W transposed, [kPieces, 2C, Cin], whose products are summed
+// (1: the bf16 weights of K3; 3: float32 weights split hi + mid + lo). Warp
+// w computes rows 16 (w % 4) .. + 16 and columns 32 (w / 4) .. + 32 as four
+// m16n8k16 products a 16-deep step.
+template <int kPieces>
+__device__ void tile_bf16(const __nv_bfloat16* x, int rows, int cin,
+                          const __nv_bfloat16* wt, int c2, Cols cols, const float* bias,
+                          float* out, int ldo, int n0, int ncols, unsigned char* stage) {
+    constexpr int ld = kDepth + kPadH;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage);  // [kTile][ld]
+    __nv_bfloat16* ws = xs + kTile * ld;                          // [kPieces][kTile][ld]
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    float acc[4][4] = {};
+    for (int i0 = 0; i0 < cin; i0 += kDepth) {
+        __syncthreads();
+        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
+            const int m = e / kDepth, i = e % kDepth;
+            xs[m * ld + i] = (m < rows && i0 + i < cin) ? x[(size_t)m * cin + i0 + i] : zero;
+        }
+        for (int e = threadIdx.x; e < kPieces * kTile * kDepth; e += kThreads) {
+            const int i = e % kDepth, n = (e / kDepth) % kTile, pc = e / (kDepth * kTile);
+            ws[(pc * kTile + n) * ld + i] =
+                (n0 + n < ncols && i0 + i < cin)
+                    ? wt[((size_t)pc * c2 + cols(n0 + n)) * cin + i0 + i] : zero;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k0 = 0; k0 < kDepth; k0 += 16) {
+            const __nv_bfloat16* xa = xs + (wm + g) * ld + k0 + 2 * t;
+            const uint32_t a[4] = {ld32(xa), ld32(xa + 8 * ld), ld32(xa + 8),
+                                   ld32(xa + 8 * ld + 8)};
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+                for (int pc = 0; pc < kPieces; ++pc) {
+                    const __nv_bfloat16* wb = ws + (pc * kTile + wn + nt * 8 + g) * ld + k0 + 2 * t;
+                    mma_bf16(acc[nt], a, ld32(wb), ld32(wb + 8));
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+            const int m = wm + g + 8 * (h / 2), n = n0 + wn + nt * 8 + 2 * t + h % 2;
+            if (m < rows && n < ncols) out[(size_t)m * ldo + n] = acc[nt][h] + bias[cols(n)];
+        }
+    }
+}
+
+template <typename T, int kPieces>
+__device__ void project_tile(const T* x, int rows, int cin, const void* w, int c2,
+                             Cols cols, const float* bias, float* out, int ldo, int n0,
+                             int ncols, unsigned char* stage) {
+    if constexpr (std::is_same_v<T, float>) {
+        tile_f32(x, rows, cin, static_cast<const float*>(w), c2, cols, bias, out, ldo, n0,
+                 ncols, stage);
+    } else {
+        tile_bf16<kPieces>(x, rows, cin, static_cast<const __nv_bfloat16*>(w), c2, cols,
+                           bias, out, ldo, n0, ncols, stage);
+    }
+}
+
+// K3 step (1): kv [M, 2C] = x [M, Cin] [Wk | Wv] + [bk | bv], one 64 x 64
+// tile a CTA.
+template <typename T, int kPieces>
+__global__ void __launch_bounds__(kThreads)
+project_kv_kernel(const T* x, const void* w, const float* bias, int m, int cin, int c,
+                  float* kv) {
+    __shared__ __align__(16) unsigned char stage[kStageBytes];
+    const size_t row0 = (size_t)blockIdx.x * kTile;
+    project_tile<T, kPieces>(x + row0 * cin, min(kTile, m - (int)row0), cin, w, 2 * c,
+                             Cols{c, c, 0}, bias, kv + row0 * 2 * c, 2 * c,
+                             (int)blockIdx.y * kTile, 2 * c, stage);
+}
 
 // Offsets of the packed parameter buffer (all matrices [in, out] row-major):
 // a0 [9] b0 [3] a1 [3*C] b1 [C] s0 [C] t0 [C] w0 [C*cs] c0 [cs] s1 [cs]
-// t1 [cs] w1 [cs*cs] c1 [cs], then (K3/K6 only) wk [Cin*C] bk [C]
-// wv [Cin*C] bv [C]
+// t1 [cs] w1 [cs*cs] c1 [cs]
 struct Params {
-    const float *a0, *b0, *a1, *b1, *s0, *t0, *w0, *c0, *s1, *t1, *w1, *c1, *wk,
-        *bk, *wv, *bv;
+    const float *a0, *b0, *a1, *b1, *s0, *t0, *w0, *c0, *s1, *t1, *w1, *c1;
 };
 
-__device__ Params unpack(const float* base, int cin, int c, int cs) {
+__device__ Params unpack(const float* base, int c, int cs) {
     Params r;
     r.a0 = base; base += 9;
     r.b0 = base; base += 3;
@@ -82,258 +263,365 @@ __device__ Params unpack(const float* base, int cin, int c, int cs) {
     r.s1 = base; base += cs;
     r.t1 = base; base += cs;
     r.w1 = base; base += (size_t)cs * cs;
-    r.c1 = base; base += cs;
-    r.wk = base; base += (size_t)cin * c;
-    r.bk = base; base += c;
-    r.wv = base; base += (size_t)cin * c;
-    r.bv = base;
+    r.c1 = base;
     return r;
 }
 
 // The loader of step (0), and with it what step (1) does.
 enum Loader : int {
-    kFusedGather = 0,  // K3: gather x [B, N, Cin] and p [B, N, 3] by knn_idx
-    kGathered = 1,     // K6: rows of x_g [B*N*K, Cin] and p_r [B*N*K, 3]
-    kProjected = 2,    // K7: rows of k_g, v_g [B*N*K, C] and p_r; no projection
+    kFusedGather = 0,  // K3: rows of kv [B*N, 2C] and p [B, N, 3] by knn_idx
+    kGathered = 1,     // K6: rows of x_g [B*N*K, Cin] (projected here) and p_r
+    kProjected = 2,    // K7: rows of k_g, v_g [B*N*K, C] and p_r
 };
+
+// Shared memory of a CTA, in floats: the parameters of its cw channels,
+// q [R, cw], pe0 [R*K, 3], the neighbour rows (K3), u [R*K, ldu] (K6: k
+// then v, u written over k) and t, w [R*K, cs] (K6: also the staging of a
+// projection tile).
+struct Layout {
+    int ldu, q, pe0, nbr, u, t, w, end;
+};
+
+__host__ __device__ inline int align4(int v) { return (v + 3) & ~3; }
+
+__host__ __device__ inline Layout make_layout(int loader, int kk, int cw, int cs,
+                                              int rows) {
+    Layout l;
+    const int rk = rows * kk;
+    l.ldu = (loader == kGathered ? 2 * cw : cw) + 1;  // odd: no bank conflicts
+    l.q = align4(12 + 6 * cw + cw * cs + 4 * cs + cs * cs);
+    l.pe0 = l.q + rows * cw;
+    l.nbr = l.pe0 + 3 * rk;
+    l.u = align4(l.nbr + (loader == kFusedGather ? rk : 0));
+    l.t = align4(l.u + rk * l.ldu);
+    l.w = l.t + rk * cs;
+    const int end = l.w + rk * cs, stage_end = l.t + kStageBytes / 4;
+    l.end = loader == kGathered && stage_end > end ? stage_end : end;
+    return l;
+}
 
 template <typename T>
 struct Args {
-    const T* rows;       // K3 x, K6 x_g, K7 k_g
+    const void* rows;    // K3 kv [B*N, 2C] float; K6 x_g [BN*K, Cin], K7 k_g, in T
     const T* v_rows;     // K7 v_g
-    const void* p;       // K3 p [B, N, 3] float; K6/K7 p_r [B*N*K, 3] in T
+    const void* p;       // K3 p [B, N, 3] float; K6/K7 p_r [BN*K, 3] in T
     const int* knn_idx;  // K3 [B, N, K]
-    const void* q;       // [B*N, C]: float for K6, else T
+    const void* q;       // [BN, C]: float for K6, else T
     const float* params;
-    void* out;           // [B*N, C]: T for K3, else float
-    int n, kk, cin, c, cs;
+    const void* w;       // K6: Wk|Wv, float [Cin, 2C] or bf16 pieces [3, 2C, Cin]
+    const float* bias;   // K6: bk|bv [2C]
+    void* out;           // [BN, C]: T for K3, else float
+    int n, n_rows, kk, cin, c, cs, rows_per_cta, split;
 };
 
-template <int kLoader, typename T>
-__global__ void attention_kernel(const Args<T> a) {
+template <int kLoader, typename T, int kPieces>
+__global__ void __launch_bounds__(kThreads) attention_kernel(const Args<T> a) {
     using TQ = std::conditional_t<kLoader == kGathered, float, T>;
     using TO = std::conditional_t<kLoader == kFusedGather, T, float>;
-    constexpr bool kProject = kLoader != kProjected;
-    extern __shared__ float smem[];
-    const size_t row = blockIdx.x;        // b * n + i
-    const int kk = a.kk, cin = a.cin, c = a.c, cs = a.cs;
-    const Params w = unpack(a.params, kProject ? cin : 0, c, cs);
+    extern __shared__ __align__(16) float smem[];
+    const int kk = a.kk, c = a.c, cs = a.cs, split = a.split;
+    const int rank = split > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    const int cw = c / split, g0 = rank * cw;
+    const size_t row0 = (size_t)(blockIdx.x / split) * a.rows_per_cta;
+    const int nr = min(a.rows_per_cta, (int)(a.n_rows - row0));
+    const int nrk = nr * kk;
+    const Layout L = make_layout(kLoader, kk, cw, cs, a.rows_per_cta);
+    float* s_a0 = smem;
+    float* s_b0 = smem + 9;
+    float* s_a1 = smem + 12;
+    float* s_b1 = s_a1 + 3 * cw;
+    float* s_s0 = s_b1 + cw;
+    float* s_t0 = s_s0 + cw;
+    float* s_w0 = s_t0 + cw;
+    float* s_c0 = s_w0 + cw * cs;
+    float* s_s1 = s_c0 + cs;
+    float* s_t1 = s_s1 + cs;
+    float* s_w1 = s_t1 + cs;
+    float* s_c1 = s_w1 + cs * cs;
+    float* s_q = smem + L.q;
+    float* s_pe0 = smem + L.pe0;
+    int* s_nbr = reinterpret_cast<int*>(smem + L.nbr);
+    float* s_u = smem + L.u;
+    float* s_t = smem + L.t;
+    float* s_w = smem + L.w;
 
-    // q [C] | scratch | u [K, C] pre-softmax weight input | vpe [K, C] v + pe
-    // | pe0 [K, 3]. The scratch holds x_g [K, Cin] (K3/K6), later t [K, cs]
-    // and w [K, cs]; K7 needs only t and w there.
-    float* s_q = smem;
-    float* s_xg = s_q + c;
-    float* s_u = s_xg + (kProject ? (size_t)kk * cin : 2 * (size_t)kk * cs);
-    float* s_vpe = s_u + (size_t)kk * c;
-    float* s_pe0 = s_vpe + (size_t)kk * c;
-    float* s_t = s_xg;
-    float* s_w = s_xg + (size_t)kk * cs;
-
+    // (0) the parameters of this CTA's channels, q and the neighbour rows
+    const Params g = unpack(a.params, c, cs);
+    for (int e = threadIdx.x; e < 12; e += kThreads) smem[e] = e < 9 ? g.a0[e] : g.b0[e - 9];
+    for (int e = threadIdx.x; e < cw; e += kThreads) {
+        for (int o = 0; o < 3; ++o) s_a1[o * cw + e] = g.a1[o * c + g0 + e];
+        s_b1[e] = g.b1[g0 + e];
+        s_s0[e] = g.s0[g0 + e];
+        s_t0[e] = g.t0[g0 + e];
+    }
+    for (int e = threadIdx.x; e < cw * cs; e += kThreads) s_w0[e] = g.w0[(size_t)g0 * cs + e];
+    for (int e = threadIdx.x; e < cs; e += kThreads) {
+        s_c0[e] = g.c0[e];
+        s_s1[e] = g.s1[e];
+        s_t1[e] = g.t1[e];
+        s_c1[e] = g.c1[e];
+    }
+    for (int e = threadIdx.x; e < cs * cs; e += kThreads) s_w1[e] = g.w1[e];
     const TQ* q = static_cast<const TQ*>(a.q);
-    for (int e = threadIdx.x; e < c; e += blockDim.x) s_q[e] = ld(q, row * c + e);
+    for (int e = threadIdx.x; e < nr * cw; e += kThreads) {
+        const int r = e / cw;
+        s_q[e] = ld(q, (row0 + r) * c + g0 + (e - r * cw));
+    }
     if constexpr (kLoader == kFusedGather) {
-        const size_t b = row / a.n;
-        const int* nb = a.knn_idx + row * kk;
-        const T* xb = a.rows + b * (size_t)a.n * cin;
-        const float* p = static_cast<const float*>(a.p);
-        const float* pb = p + b * (size_t)a.n * 3;
-        const float* prow = p + row * 3;
-        for (int e = threadIdx.x; e < kk * cin; e += blockDim.x) {
-            const int k = e / cin;
-            s_xg[e] = ld(xb, (size_t)nb[k] * cin + (e - k * cin));
-        }
-        for (int e = threadIdx.x; e < kk * 3; e += blockDim.x) {
-            const int k = e / 3, o = e - k * 3;
-            const float* pj = pb + (size_t)nb[k] * 3;
-            const float r0 = round_to<T>(pj[0] - prow[0]),
-                        r1 = round_to<T>(pj[1] - prow[1]),
-                        r2 = round_to<T>(pj[2] - prow[2]);
-            const float h = w.b0[o] + r0 * w.a0[o] + r1 * w.a0[3 + o] + r2 * w.a0[6 + o];
-            s_pe0[e] = fmaxf(h, 0.f);
-        }
-    } else {
-        if constexpr (kLoader == kGathered) {
-            const T* xg = a.rows + row * kk * (size_t)cin;
-            for (int e = threadIdx.x; e < kk * cin; e += blockDim.x) s_xg[e] = ld(xg, e);
-        }
-        const T* pr = static_cast<const T*>(a.p) + row * kk * 3;
-        for (int e = threadIdx.x; e < kk * 3; e += blockDim.x) {
-            const int k = e / 3, o = e - k * 3;
-            const float h = w.b0[o] + ld(pr, k * 3) * w.a0[o]
-                            + ld(pr, k * 3 + 1) * w.a0[3 + o]
-                            + ld(pr, k * 3 + 2) * w.a0[6 + o];
-            s_pe0[e] = fmaxf(h, 0.f);
+        for (int e = threadIdx.x; e < nrk; e += kThreads) {
+            const size_t row = row0 + e / kk;
+            s_nbr[e] = (int)(row / a.n) * a.n + a.knn_idx[row0 * kk + e];
         }
     }
     __syncthreads();
 
-    // (1)-(3a): per (group of kKB neighbours, channel): in K3/K6 each weight
-    // loaded from global memory serves kKB neighbours, and each (k, ch) sum
-    // runs over i in order, as a plain loop per neighbour would; K7 reads
-    // the kKB neighbours' k and v
-    const int n_kb = (kk + kKB - 1) / kKB;
-    for (int e = threadIdx.x; e < n_kb * c; e += blockDim.x) {
-        const int k0 = (e / c) * kKB, ch = e - (e / c) * c;
-        float kv[kKB], vv[kKB];
-        if constexpr (kProject) {
-            const float* xg[kKB];
-#pragma unroll
-            for (int j = 0; j < kKB; ++j) {
-                xg[j] = s_xg + (size_t)min(k0 + j, kk - 1) * cin;  // tail: recomputed
-                kv[j] = w.bk[ch];
-                vv[j] = w.bv[ch];
-            }
-            for (int i = 0; i < cin; ++i) {
-                const float wk = w.wk[(size_t)i * c + ch], wv = w.wv[(size_t)i * c + ch];
-#pragma unroll
-                for (int j = 0; j < kKB; ++j) {
-                    kv[j] += xg[j][i] * wk;
-                    vv[j] += xg[j][i] * wv;
-                }
-            }
+    // (2) first half: pe0 = relu(p_r A0 + b0) [R*K, 3]
+    for (int e = threadIdx.x; e < nrk * 3; e += kThreads) {
+        const int rk = e / 3, o = e - rk * 3;
+        float r0, r1, r2;
+        if constexpr (kLoader == kFusedGather) {
+            const float* p = static_cast<const float*>(a.p);
+            const float* pj = p + (size_t)s_nbr[rk] * 3;
+            const float* pi = p + (row0 + rk / kk) * 3;
+            r0 = round_to<T>(pj[0] - pi[0]);
+            r1 = round_to<T>(pj[1] - pi[1]);
+            r2 = round_to<T>(pj[2] - pi[2]);
         } else {
-            const size_t base = row * kk * (size_t)c + ch;
-#pragma unroll
-            for (int j = 0; j < kKB; ++j) {
-                const size_t off = base + (size_t)min(k0 + j, kk - 1) * c;
-                kv[j] = ld(a.rows, off);
-                vv[j] = ld(a.v_rows, off);
+            const T* pr = static_cast<const T*>(a.p) + (row0 * kk + rk) * 3;
+            r0 = ld(pr, 0);
+            r1 = ld(pr, 1);
+            r2 = ld(pr, 2);
+        }
+        s_pe0[e] = fmaxf(s_b0[o] + r0 * s_a0[o] + r1 * s_a0[3 + o] + r2 * s_a0[6 + o], 0.f);
+    }
+
+    // (1) K6: k|v of this CTA's channels for its R*K gathered rows, in tiles
+    if constexpr (kLoader == kGathered) {
+        const T* xg = static_cast<const T*>(a.rows) + row0 * kk * (size_t)a.cin;
+        unsigned char* stage = reinterpret_cast<unsigned char*>(s_t);
+        for (int m0 = 0; m0 < nrk; m0 += kTile) {
+            for (int n0 = 0; n0 < 2 * cw; n0 += kTile) {
+                project_tile<T, kPieces>(xg + (size_t)m0 * a.cin, min(kTile, nrk - m0),
+                                         a.cin, a.w, 2 * c, Cols{c, cw, g0}, a.bias,
+                                         s_u + (size_t)m0 * L.ldu, L.ldu, n0, 2 * cw, stage);
             }
         }
-#pragma unroll
-        for (int j = 0; j < kKB; ++j) {
-            const int k = k0 + j;
-            if (k >= kk) break;
-            const float* pe0 = s_pe0 + k * 3;
-            const float pe = w.b1[ch] + pe0[0] * w.a1[ch] + pe0[1] * w.a1[c + ch]
-                             + pe0[2] * w.a1[2 * c + ch];
-            s_u[(size_t)k * c + ch] = fmaxf((kv[j] - s_q[ch] + pe) * w.s0[ch] + w.t0[ch],
-                                            0.f);
-            s_vpe[(size_t)k * c + ch] = vv[j] + pe;
+    }
+    __syncthreads();
+
+    // (2) second half + (3a): u = relu(s0 (k - q + pe) + t0) [R*K, cw]
+    const float* kv = static_cast<const float*>(a.rows);  // K3
+    for (int e = threadIdx.x; e < nrk * cw; e += kThreads) {
+        const int rk = e / cw, ch = e - rk * cw;
+        float kval;
+        if constexpr (kLoader == kFusedGather) {
+            kval = kv[(size_t)s_nbr[rk] * 2 * c + g0 + ch];
+        } else if constexpr (kLoader == kGathered) {
+            kval = s_u[(size_t)rk * L.ldu + ch];
+        } else {
+            kval = ld(static_cast<const T*>(a.rows), (row0 * kk + rk) * (size_t)c + g0 + ch);
+        }
+        const float* pe0 = s_pe0 + rk * 3;
+        const float pe = s_b1[ch] + pe0[0] * s_a1[ch] + pe0[1] * s_a1[cw + ch]
+                         + pe0[2] * s_a1[2 * cw + ch];
+        s_u[(size_t)rk * L.ldu + ch] =
+            fmaxf((kval - s_q[(rk / kk) * cw + ch] + pe) * s_s0[ch] + s_t0[ch], 0.f);
+    }
+    __syncthreads();
+
+    // (3b) t = relu(s1 (u W0 + c0) + t1) [R*K, cs]; with a split each CTA
+    // sums its cw channels into w, and the parts are added in rank order
+    for (int e = threadIdx.x; e < nrk * cs; e += kThreads) {
+        const int rk = e / cs, j = e - rk * cs;
+        const float* u = s_u + (size_t)rk * L.ldu;
+        float acc = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < cw; ++i) acc = fmaf(u[i], s_w0[i * cs + j], acc);
+        if (split == 1) {
+            s_t[e] = fmaxf((acc + s_c0[j]) * s_s1[j] + s_t1[j], 0.f);
+        } else {
+            s_w[e] = acc;
         }
     }
-    __syncthreads();
-
-    // (3b): first weight Dense + folded BN + relu -> t [K, cs], stored over x_g
-    for (int e = threadIdx.x; e < kk * cs; e += blockDim.x) {
-        const int k = e / cs, j = e - k * cs;
-        const float* u = s_u + (size_t)k * c;
-        float acc = w.c0[j];
-        for (int i = 0; i < c; ++i) acc += u[i] * w.w0[(size_t)i * cs + j];
-        s_t[e] = fmaxf(acc * w.s1[j] + w.t1[j], 0.f);
+    if (split > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();
+        for (int e = threadIdx.x; e < nrk * cs; e += kThreads) {
+            const int j = e % cs;
+            float acc = 0.f;
+            for (int r = 0; r < split; ++r) acc += cluster.map_shared_rank(s_w, r)[e];
+            s_t[e] = fmaxf((acc + s_c0[j]) * s_s1[j] + s_t1[j], 0.f);
+        }
+        cluster.sync();  // no CTA writes its w while a partner may read it
+    } else {
+        __syncthreads();
     }
-    __syncthreads();
 
-    // (3c): second weight Dense -> w [K, cs]
-    for (int e = threadIdx.x; e < kk * cs; e += blockDim.x) {
-        const int k = e / cs, j = e - k * cs;
-        const float* t = s_t + (size_t)k * cs;
-        float acc = w.c1[j];
-        for (int i = 0; i < cs; ++i) acc += t[i] * w.w1[(size_t)i * cs + j];
+    // (3c) w = t W1 + c1 [R*K, cs]
+    for (int e = threadIdx.x; e < nrk * cs; e += kThreads) {
+        const int rk = e / cs, j = e - rk * cs;
+        const float* t = s_t + rk * cs;
+        float acc = s_c1[j];
+        for (int i = 0; i < cs; ++i) acc = fmaf(t[i], s_w1[i * cs + j], acc);
         s_w[e] = acc;
     }
     __syncthreads();
 
-    // (4) softmax over K per channel group
-    for (int j = threadIdx.x; j < cs; j += blockDim.x) {
+    // (4) softmax over K: one warp per (row, group), lanes over neighbours
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int task = warp; task < nr * cs; task += kWarps) {
+        const int r = task / cs, j = task - r * cs;
+        float* w = s_w + (size_t)r * kk * cs + j;
         float mx = -CUDART_INF_F;
-        for (int k = 0; k < kk; ++k) mx = fmaxf(mx, s_w[k * cs + j]);
+        for (int k = lane; k < kk; k += 32) mx = fmaxf(mx, w[k * cs]);
+        for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, o));
         float sum = 0.f;
-        for (int k = 0; k < kk; ++k) {
-            const float ex = expf(s_w[k * cs + j] - mx);
-            s_w[k * cs + j] = ex;
+        for (int k = lane; k < kk; k += 32) {
+            const float ex = expf(w[k * cs] - mx);
+            w[k * cs] = ex;
             sum += ex;
         }
-        for (int k = 0; k < kk; ++k) s_w[k * cs + j] /= sum;
+        // a butterfly: every lane adds the same pairs, so all hold one sum
+        for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(~0u, sum, o);
+        for (int k = lane; k < kk; k += 32) w[k * cs] /= sum;
     }
     __syncthreads();
 
-    // (5) aggregate
+    // (5) out = sum_k (v + pe) w, v read again (K3 from kv in L2)
     TO* out = static_cast<TO*>(a.out);
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-        const int j = ch % cs;
+    for (int e = threadIdx.x; e < nr * cw; e += kThreads) {
+        const int r = e / cw, ch = e - r * cw, gc = g0 + ch, j = gc % cs;
+        const float b1 = s_b1[ch], a10 = s_a1[ch], a11 = s_a1[cw + ch],
+                    a12 = s_a1[2 * cw + ch];
         float acc = 0.f;
-        for (int k = 0; k < kk; ++k) acc += s_vpe[(size_t)k * c + ch] * s_w[k * cs + j];
-        st(out, row * c + ch, acc);
+        for (int k = 0; k < kk; ++k) {
+            const int rk = r * kk + k;
+            float v;
+            if constexpr (kLoader == kFusedGather) {
+                v = kv[(size_t)s_nbr[rk] * 2 * c + c + gc];
+            } else if constexpr (kLoader == kGathered) {
+                v = s_u[(size_t)rk * L.ldu + cw + ch];
+            } else {
+                v = ld(a.v_rows, (row0 * kk + rk) * (size_t)c + gc);
+            }
+            const float* pe0 = s_pe0 + rk * 3;
+            const float pe = b1 + pe0[0] * a10 + pe0[1] * a11 + pe0[2] * a12;
+            acc = fmaf(v + pe, s_w[rk * cs + j], acc);
+        }
+        st(out, (row0 + r) * c + gc, acc);
     }
 }
 
-template <int kLoader, typename T>
-int launch(const Args<T>& a, size_t rows, size_t smem, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(attention_kernel<kLoader, T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attention_kernel<kLoader, T><<<(unsigned)rows, kThreads, smem, stream>>>(a);
-    return (int)cudaGetLastError();
+// The CTA plan of a launch: R rows a CTA, S CTAs a row, shared memory.
+struct Plan {
+    int rows, split;
+    size_t smem;
+};
+
+Plan plan(int loader, size_t n_rows, int kk, int c, int cs) {
+    Plan p;
+    p.split = (c >= 256 && c % 128 == 0) ? std::min(4, c / 128) : 1;
+    const int cw = c / p.split;
+    const int ldu = (loader == kGathered ? 2 * cw : cw) + 1;
+    // floats of u (K6: k|v) a CTA holds; then halve R while the launch
+    // would have fewer than two CTAs an SM (132 SMs)
+    const int budget = loader == kGathered ? 18432 : 8192;
+    p.rows = std::max(1, std::min(8, budget / std::max(1, kk * ldu)));
+    while (p.rows > 1 && (n_rows + p.rows - 1) / p.rows * p.split < 264) p.rows /= 2;
+    p.smem = sizeof(float) * (size_t)make_layout(loader, kk, cw, cs, p.rows).end;
+    return p;
 }
 
-template <int kLoader>
-int dispatch(const void* rows, const void* v_rows, const void* p, const int* knn_idx,
-             const void* q, const float* params, size_t n_rows, int n, int kk,
-             int cin, int c, int cs, void* out, size_t smem, int bf16,
-             cudaStream_t stream) {
-    if (bf16) {
-        using T = __nv_bfloat16;
-        const Args<T> a{static_cast<const T*>(rows), static_cast<const T*>(v_rows), p,
-                        knn_idx, q, params, out, n, kk, cin, c, cs};
-        return launch<kLoader, T>(a, n_rows, smem, stream);
-    }
-    const Args<float> a{static_cast<const float*>(rows),
-                        static_cast<const float*>(v_rows), p, knn_idx, q, params,
-                        out, n, kk, cin, c, cs};
-    return launch<kLoader, float>(a, n_rows, smem, stream);
+template <int kLoader, typename T, int kPieces>
+int launch(Args<T> a, cudaStream_t stream) {
+    if (a.n_rows < 1) return 0;
+    if (a.c < 1 || a.cs < 1 || a.c % a.cs || a.kk < 1) return (int)cudaErrorInvalidValue;
+    const Plan p = plan(kLoader, (size_t)a.n_rows, a.kk, a.c, a.cs);
+    a.rows_per_cta = p.rows;
+    a.split = p.split;
+    return launch_clusters(attention_kernel<kLoader, T, kPieces>,
+                           (a.n_rows + p.rows - 1) / p.rows, p.split, kThreads, p.smem,
+                           stream, a);
 }
 
 }  // namespace
 
-// Shared memory of one K3 / K6 block.
-extern "C" size_t tgn_attention_smem_bytes(int kk, int cin, int c) {
-    return sizeof(float) * ((size_t)c + (size_t)kk * cin + 2 * (size_t)kk * c + 3 * (size_t)kk);
+// Shared memory of one CTA of loader `loader` (0 K3, 1 K6, 2 K7) over
+// `n_rows` query rows.
+extern "C" size_t tgn_attention_smem_bytes(int loader, int n_rows, int kk, int c, int cs) {
+    return plan(loader, (size_t)std::max(n_rows, 1), kk, c, cs).smem;
 }
 
-// Shared memory of one K7 block.
-extern "C" size_t tgn_attention_projected_smem_bytes(int kk, int c, int cs) {
-    return sizeof(float) * ((size_t)c + 2 * (size_t)kk * cs + 2 * (size_t)kk * c
-                            + 3 * (size_t)kk);
+// K3 step (1). x [M, Cin] (bf16 != 0: bfloat16, w the bf16 [2C, Cin] of
+// Wk|Wv transposed; else float32, w [Cin, 2C]), bias [2C] float32; kv
+// [M, 2C] float32. Returns cudaGetLastError().
+extern "C" int tgn_project_kv(const void* x, const void* w, const float* bias, int m,
+                              int cin, int c, float* kv, int bf16, cudaStream_t stream) {
+    if (m < 1) return 0;
+    if (cin < 1 || c < 1) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((m + kTile - 1) / kTile), (unsigned)((2 * c + kTile - 1) / kTile));
+    if (bf16) {
+        project_kv_kernel<__nv_bfloat16, 1><<<grid, kThreads, 0, stream>>>(
+            static_cast<const __nv_bfloat16*>(x), w, bias, m, cin, c, kv);
+    } else {
+        project_kv_kernel<float, 0><<<grid, kThreads, 0, stream>>>(
+            static_cast<const float*>(x), w, bias, m, cin, c, kv);
+    }
+    return (int)cudaGetLastError();
 }
 
-// K3. x [B, N, Cin] (bf16 != 0: bfloat16, else float32), p [B, N, 3]
-// float32, knn_idx [B, N, K] int32 (within-cloud), q [B*N, C] in x's
-// dtype, params packed as above; out [B*N, C] in x's dtype. Returns
-// cudaGetLastError().
-extern "C" int tgn_attention(const void* x, const float* p, const int* knn_idx,
-                             const void* q, const float* params, int b, int n,
-                             int kk, int cin, int c, int cs, void* out, int bf16,
-                             cudaStream_t stream) {
-    return dispatch<kFusedGather>(x, nullptr, p, knn_idx, q, params, (size_t)b * n, n,
-                                  kk, cin, c, cs, out,
-                                  tgn_attention_smem_bytes(kk, cin, c), bf16, stream);
+// K3 steps (0), (2)-(5). kv [B*N, 2C] float32 from tgn_project_kv, p
+// [B, N, 3] float32, knn_idx [B, N, K] int32 (within-cloud), q [B*N, C]
+// (bf16 != 0: bfloat16, else float32), params packed as above; out
+// [B*N, C] in q's dtype. Returns the launch's CUDA status.
+extern "C" int tgn_attention(const float* kv, const float* p, const int* knn_idx,
+                             const void* q, const float* params, int b, int n, int kk,
+                             int c, int cs, void* out, int bf16, cudaStream_t stream) {
+    const int rows = b * n;
+    if (bf16) {
+        using T = __nv_bfloat16;
+        return launch<kFusedGather, T, 0>(
+            Args<T>{kv, nullptr, p, knn_idx, q, params, nullptr, nullptr, out, n, rows, kk,
+                    0, c, cs, 0, 0}, stream);
+    }
+    return launch<kFusedGather, float, 0>(
+        Args<float>{kv, nullptr, p, knn_idx, q, params, nullptr, nullptr, out, n, rows, kk,
+                    0, c, cs, 0, 0}, stream);
 }
 
 // K6. q [BN, C] float32, x_g [BN*K, Cin] and p_r [BN*K, 3] (bf16 != 0:
-// bfloat16, else float32), params packed as above; out [BN, C] float32.
-// Returns cudaGetLastError().
-extern "C" int tgn_attention_gathered(const float* q, const void* x_g,
-                                      const void* p_r, const float* params,
-                                      int bn, int kk, int cin, int c, int cs,
-                                      float* out, int bf16, cudaStream_t stream) {
-    return dispatch<kGathered>(x_g, nullptr, p_r, nullptr, q, params, (size_t)bn, bn,
-                               kk, cin, c, cs, out,
-                               tgn_attention_smem_bytes(kk, cin, c), bf16, stream);
+// bfloat16 and w the three bf16 pieces [3, 2C, Cin] of Wk|Wv transposed;
+// else float32 and w [Cin, 2C]), bias = bk|bv [2C] float32, params packed
+// as above; out [BN, C] float32. Returns the launch's CUDA status.
+extern "C" int tgn_attention_gathered(const float* q, const void* x_g, const void* p_r,
+                                      const float* params, const void* w,
+                                      const float* bias, int bn, int kk, int cin, int c,
+                                      int cs, float* out, int bf16, cudaStream_t stream) {
+    if (bf16) {
+        using T = __nv_bfloat16;
+        return launch<kGathered, T, 3>(
+            Args<T>{x_g, nullptr, p_r, nullptr, q, params, w, bias, out, bn, bn, kk, cin,
+                    c, cs, 0, 0}, stream);
+    }
+    return launch<kGathered, float, 0>(
+        Args<float>{x_g, nullptr, p_r, nullptr, q, params, w, bias, out, bn, bn, kk, cin,
+                    c, cs, 0, 0}, stream);
 }
 
 // K7. q [BN, C], k_g and v_g [BN*K, C], p_r [BN*K, 3] (bf16 != 0: all
-// bfloat16, else float32), params packed as above without the k/v part;
-// out [BN, C] float32. Returns cudaGetLastError().
-extern "C" int tgn_attention_projected(const void* q, const void* k_g,
-                                       const void* v_g, const void* p_r,
-                                       const float* params, int bn, int kk, int c,
-                                       int cs, float* out, int bf16,
+// bfloat16, else float32), params packed as above; out [BN, C] float32.
+// Returns the launch's CUDA status.
+extern "C" int tgn_attention_projected(const void* q, const void* k_g, const void* v_g,
+                                       const void* p_r, const float* params, int bn,
+                                       int kk, int c, int cs, float* out, int bf16,
                                        cudaStream_t stream) {
-    return dispatch<kProjected>(k_g, v_g, p_r, nullptr, q, params, (size_t)bn, bn, kk,
-                                0, c, cs, out,
-                                tgn_attention_projected_smem_bytes(kk, c, cs), bf16,
-                                stream);
+    if (bf16) {
+        using T = __nv_bfloat16;
+        return launch<kProjected, T, 0>(
+            Args<T>{k_g, static_cast<const T*>(v_g), p_r, nullptr, q, params, nullptr,
+                    nullptr, out, bn, bn, kk, 0, c, cs, 0, 0}, stream);
+    }
+    return launch<kProjected, float, 0>(
+        Args<float>{k_g, static_cast<const float*>(v_g), p_r, nullptr, q, params, nullptr,
+                    nullptr, out, bn, bn, kk, 0, c, cs, 0, 0}, stream);
 }

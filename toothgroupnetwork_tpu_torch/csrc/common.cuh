@@ -5,6 +5,7 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <math_constants.h>
+#include <utility>
 
 // Element access of the two model dtypes: bf16 is read widened to float
 // (exact) and written with round-to-nearest-even, as a cast in the JAX
@@ -45,6 +46,40 @@ inline int copy_unit(size_t row_bytes, const void* src, const void* dst) {
         if (bits % u == 0) return u;
     }
     return 2;
+}
+
+// Launch `kernel` as B clusters of `c` CTAs (1 <= c <= 16; dynamic shared
+// memory `smem` a CTA) after cudaOccupancyMaxActiveClusters finds room for
+// one; a refused size or launch is returned as its error.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int b, int c, int threads,
+                    size_t smem, cudaStream_t stream, Args&&... args) {
+    if (b < 1 || c < 1 || c > 16) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(b * c));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 // Squared distance in a fixed order, (dx*dx + dy*dy) + dz*dz, with the

@@ -349,39 +349,6 @@ fps_chain_kernel(int m, int* __restrict__ out) {
     cluster.sync();
 }
 
-// Launch `kernel` as B clusters of `c` CTAs after cudaOccupancyMaxActiveClusters
-// finds room for one; a refused size or launch is returned as its error.
-template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int b, int c, int threads,
-                    size_t smem, cudaStream_t stream, Args&&... args) {
-    if (b < 1 || c < 1 || c > kMaxCluster) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(b * c));
-    cfg.blockDim = dim3((unsigned)threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // xyz [B, N, 3] f32, valid [B, N] bool bytes or null, dist scratch [B, N] f32

@@ -65,6 +65,25 @@ class PointTransformerLayer(nn.Module):
         self.linear_w0 = Dense(mid, mid // share_planes, **kw)
         self.linear_w_bn1 = MaskedBatchNorm(cs, **kw)
         self.linear_w1 = Dense(cs, cs, **kw)
+        self._folded, self._folded_key = None, None
+
+    def kernel_params(self) -> dict:
+        """``fold_attention_params(self, self.dtype)``, folded once and kept
+        (with the kernel layouts the wrappers add to it) until a parameter
+        or buffer of the layer changes: in place (its version counter moves;
+        ``load_state_dict``, ``load_npz`` and ``copy_`` all count) or
+        replaced. A layer whose tensors were made under
+        ``torch.inference_mode`` has no version counters and folds anew each
+        call."""
+        state = [*self.parameters(), *self.buffers()]
+        if any(t.is_inference() for t in state):
+            return fold_attention_params(self, self.dtype)
+        key = (self.dtype, *((id(t), t.data_ptr(), t.device, t._version) for t in state))
+        if key != self._folded_key:
+            with torch.no_grad():
+                self._folded = fold_attention_params(self, self.dtype)
+            self._folded_key = key
+        return self._folded
 
     def forward(self, p, x, knn_idx, cell=None):
         """``cell``: the stage's ``(cand, pos, p_r)`` candidate context
@@ -72,7 +91,7 @@ class PointTransformerLayer(nn.Module):
         kernel K3."""
         b, n, kk = knn_idx.shape
         q = self.linear_q(x).reshape(b * n, -1).contiguous()
-        params = fold_attention_params(self, self.dtype)
+        params = self.kernel_params()
         if cell is None:
             # out in the model dtype (the JAX backbone's out_dtype)
             agg = fused_vector_attention_packed_x(

@@ -4,22 +4,30 @@ twins.
 K3 :func:`fused_vector_attention_packed_x` replaces
 toothgroupnetwork_tpu/ops/pallas/attention_kernel.py:
 ``fused_vector_attention_packed_x`` (``_packed_x_kernel`` + ``_packed_body``).
-On Hopper the neighbour gather and the relative positions are fused into the
-kernel as well: it takes ``x``, ``p`` and ``knn_idx`` instead of the gathered
-``x_g`` and ``p_r``.
+On Hopper it is two kernels, launched in turn by the one wrapper (one count):
+:func:`project_kv` (``tgn_project_kv``) projects k and v once per point, a
+tile product on the tensor cores for bf16 rows, where the TPU kernel's
+``kron(I_K, W)`` dot projected every gathered row; then ``tgn_attention``
+gathers the projected rows and the relative positions by ``knn_idx`` and
+runs the rest of the layer. It takes ``x``, ``p`` and ``knn_idx`` instead of
+the gathered ``x_g`` and ``p_r``.
 
 K6 :func:`fused_vector_attention` replaces ``attention_kernel.py``:
 ``fused_vector_attention`` (``_attn_kernel``) with the same contract: the
 gathered ``x_g`` and ``p_r``, as the cell-attention path builds them
-(K4/K5, ``cell_select.py``).
+(K4/K5, ``cell_select.py``); each CTA projects its R*K rows as tiles.
 
 K7 :func:`fused_vector_attention_packed` replaces ``attention_kernel.py``:
 ``fused_vector_attention_packed`` (``_packed_kernel``): k and v projected
 ahead of the kernel. As in the JAX package, no model layer calls it.
 
-The three share the kernel body and the BatchNorm folding of ``fold_bn`` /
-``fold_attention_params`` (csrc/attention.cu states the bound, the design
-and the element type of each input).
+The three share the kernel body (many rows a CTA, the folded parameters
+staged once a CTA, the channels of a wide layer split over a cluster) and
+the BatchNorm folding of ``fold_bn`` / ``fold_attention_params``
+(csrc/attention.cu states the bound, the design and the element type of
+each input). Each wrapper keeps the kernel layout of the parameters it is
+given in the dict itself (:func:`kernel_layout`), so a layer that keeps its
+folded dict (``PointTransformerLayer.kernel_params``) packs once per load.
 """
 
 from __future__ import annotations
@@ -32,10 +40,13 @@ from ._launch import MODEL_DTYPES, on_cpu, require, stream_of
 SMEM_LIMIT = 232448  # bytes a Hopper block may opt into (227 KB)
 
 # order of the packed parameter buffer read by csrc/attention.cu; the k/v
-# projection comes last, and K7 takes the buffer without it
+# projection has layouts of its own (kernel_layout)
 _PACK_ORDER = ("a0", "b0", "a1", "b1", "bn0_scale", "bn0_shift", "w0", "c0",
                "bn1_scale", "bn1_shift", "w1", "c1")
-_KV_ORDER = ("wk", "bk", "wv", "bv")
+# the key under which a parameter dict keeps its kernel layouts
+LAYOUT_KEY = "_kernel_layout"
+# the loaders of csrc/attention.cu
+_K3, _K6, _K7 = 0, 1, 2
 
 
 def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -113,17 +124,86 @@ def _kv_in(params: dict, dtype: torch.dtype) -> dict:
             "wv": _round(params["wv"], dtype)}
 
 
-def pack_params(params: dict, kv: bool = True) -> torch.Tensor:
-    """One contiguous f32 buffer in the order csrc/attention.cu unpacks
-    (without the k/v projection for K7)."""
-    keys = _PACK_ORDER + (_KV_ORDER if kv else ())
-    return torch.cat([params[k].reshape(-1).float() for k in keys]).contiguous()
+def pack_params(params: dict) -> torch.Tensor:
+    """One contiguous f32 buffer of the parameters after the k/v projection,
+    in the order csrc/attention.cu unpacks."""
+    return torch.cat([params[k].reshape(-1).float() for k in _PACK_ORDER]).contiguous()
 
 
-def _check_smem(smem: int, what: str) -> None:
+def _split_bf16(w: torch.Tensor) -> torch.Tensor:
+    """float32 ``w`` as three bf16 pieces hi + mid + lo (stacked), whose sum
+    is ``w`` to float32's 24 bits: K6's tensor-core product of bf16 rows
+    with float32 weights rounds no weight."""
+    hi = w.to(torch.bfloat16)
+    rest = w - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return torch.stack([hi, mid, (rest - mid.float()).to(torch.bfloat16)])
+
+
+def kernel_layout(params: dict, loader: int, dtype: torch.dtype,
+                  device: torch.device) -> dict:
+    """The tensors a kernel reads for ``params`` (from
+    :func:`fold_attention_params`), rows of ``dtype``, on ``device``: the
+    packed parameters after the projection and, for K3 and K6, bk|bv
+    ``[2C]`` and Wk|Wv — float32 ``[Cin, 2C]`` for float32 rows; for bf16
+    rows transposed, ``[P, 2C, Cin]`` in bf16: K3 the weights rounded to
+    bf16 (P = 1, its contract), K6 the float32 weights in three pieces.
+    Built once and kept in ``params[LAYOUT_KEY]``; a dict whose tensors are
+    changed in place must be folded again."""
+    cache = params.setdefault(LAYOUT_KEY, {})
+    key = (loader, dtype, device)
+    if key not in cache:
+        with torch.no_grad():
+            lay = {"params": pack_params(params).to(device)}
+            if loader != _K7:
+                lay["bias"] = torch.cat([params["bk"], params["bv"]]).float().to(device)
+                w = torch.cat([params["wk"], params["wv"]], dim=1).float().to(device)
+                if dtype == torch.float32:
+                    lay["w"] = w.contiguous()
+                elif loader == _K3:
+                    lay["w"] = w.t().to(dtype).contiguous()[None]
+                else:
+                    lay["w"] = _split_bf16(w.t().contiguous()).contiguous()
+        cache[key] = lay
+    return cache[key]
+
+
+def _check_smem(lib, loader: int, n_rows: int, kk: int, c: int, cs: int,
+                what: str) -> None:
+    smem = lib.tgn_attention_smem_bytes(loader, n_rows, kk, c, cs)
     if smem > SMEM_LIMIT:
         raise ValueError(f"attention: {what} needs {smem} B of shared memory "
                          f"(> {SMEM_LIMIT})")
+
+
+def project_kv(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """K3's step (1), the k/v projection once per point: x ``[M, Cin]``
+    (float32 or bfloat16), params from :func:`fold_attention_params` ->
+    kv ``[M, 2C]`` float32, ``x [Wk | Wv] + [bk | bv]`` with Wk/Wv rounded
+    to x's dtype (K3's contract). A tile product: bf16 rows on the tensor
+    cores (exact products, float32 sums), float32 rows on FMA units (no
+    TF32). CPU tensors take :func:`project_kv_reference`."""
+    if on_cpu(x):
+        return project_kv_reference(x, params)
+    dev = x.device
+    require(x, "x", MODEL_DTYPES, 2, dev)
+    m, cin = x.shape
+    c = params["wk"].shape[-1]
+    if params["wk"].shape[0] != cin:
+        raise ValueError(f"project_kv: x {tuple(x.shape)} wk {tuple(params['wk'].shape)}")
+    with torch.cuda.device(dev):
+        lib = build.library()
+        lay = kernel_layout(params, _K3, x.dtype, dev)
+        kv = torch.empty((m, 2 * c), dtype=torch.float32, device=dev)
+        status = lib.tgn_project_kv(x.data_ptr(), lay["w"].data_ptr(),
+                                    lay["bias"].data_ptr(), m, cin, c, kv.data_ptr(),
+                                    x.dtype == torch.bfloat16, stream_of(dev))
+        build.check(status, "tgn_project_kv")
+    project_kv.launches += 1
+    return kv
+
+
+project_kv.launches = 0
 
 
 def fused_vector_attention_packed_x(x: torch.Tensor, p: torch.Tensor,
@@ -135,7 +215,9 @@ def fused_vector_attention_packed_x(x: torch.Tensor, p: torch.Tensor,
     :func:`fold_attention_params` -> ``[B*N, C]`` in x's dtype (the JAX
     backbone's ``out_dtype``, its model dtype). Compute is float32; with
     bf16 rows the relative positions and Wk/Wv are rounded to bf16 first.
-    CPU tensors take :func:`fused_vector_attention_packed_x_reference`."""
+    Launches :func:`project_kv` into a float32 scratch, then the attention
+    over the gathered projections. CPU tensors take
+    :func:`fused_vector_attention_packed_x_reference`."""
     if on_cpu(x):
         return fused_vector_attention_packed_x_reference(x, p, knn_idx, q, params)
     dev = x.device
@@ -148,18 +230,18 @@ def fused_vector_attention_packed_x(x: torch.Tensor, p: torch.Tensor,
     c = q.shape[1]
     cs = params["w1"].shape[-1]
     if (tuple(p.shape) != (b, n, 3) or tuple(knn_idx.shape[:2]) != (b, n)
-            or q.shape[0] != b * n or c % cs or 2 * cs > cin):
+            or q.shape[0] != b * n or c % cs):
         raise ValueError(f"attention: x {tuple(x.shape)} p {tuple(p.shape)} "
                          f"idx {tuple(knn_idx.shape)} q {tuple(q.shape)} cs {cs}")
     with torch.cuda.device(dev):
         lib = build.library()
-        _check_smem(lib.tgn_attention_smem_bytes(kk, cin, c),
-                    f"K={kk} Cin={cin} C={c}")
-        packed = pack_params(_kv_in(params, x.dtype))
+        _check_smem(lib, _K3, b * n, kk, c, cs, f"K={kk} C={c}")
+        lay = kernel_layout(params, _K3, x.dtype, dev)
+        kv = project_kv(x.reshape(b * n, cin), params)
         out = torch.empty((b * n, c), dtype=x.dtype, device=dev)
-        status = lib.tgn_attention(x.data_ptr(), p.data_ptr(), knn_idx.data_ptr(),
-                                   q.data_ptr(), packed.data_ptr(), b, n, kk, cin,
-                                   c, cs, out.data_ptr(), x.dtype == torch.bfloat16,
+        status = lib.tgn_attention(kv.data_ptr(), p.data_ptr(), knn_idx.data_ptr(),
+                                   q.data_ptr(), lay["params"].data_ptr(), b, n, kk, c,
+                                   cs, out.data_ptr(), x.dtype == torch.bfloat16,
                                    stream_of(dev))
         build.check(status, "tgn_attention")
     fused_vector_attention_packed_x.launches += 1
@@ -186,17 +268,18 @@ def fused_vector_attention(q: torch.Tensor, x_g: torch.Tensor, p_r: torch.Tensor
     cin = x_g.shape[1]
     cs = params["w1"].shape[-1]
     if (x_g.shape[0] != bn * k or tuple(p_r.shape) != (bn * k, 3) or c % cs
-            or 2 * cs > cin):
+            or params["wk"].shape[0] != cin):
         raise ValueError(f"attention: q {tuple(q.shape)} x_g {tuple(x_g.shape)} "
                          f"p_r {tuple(p_r.shape)} k {k} cs {cs}")
     with torch.cuda.device(dev):
         lib = build.library()
-        _check_smem(lib.tgn_attention_smem_bytes(k, cin, c), f"K={k} Cin={cin} C={c}")
-        packed = pack_params(params)
+        _check_smem(lib, _K6, bn, k, c, cs, f"K={k} C={c} (gathered)")
+        lay = kernel_layout(params, _K6, x_g.dtype, dev)
         out = torch.empty((bn, c), dtype=torch.float32, device=dev)
         status = lib.tgn_attention_gathered(q.data_ptr(), x_g.data_ptr(),
-                                            p_r.data_ptr(), packed.data_ptr(), bn,
-                                            k, cin, c, cs, out.data_ptr(),
+                                            p_r.data_ptr(), lay["params"].data_ptr(),
+                                            lay["w"].data_ptr(), lay["bias"].data_ptr(),
+                                            bn, k, cin, c, cs, out.data_ptr(),
                                             x_g.dtype == torch.bfloat16,
                                             stream_of(dev))
         build.check(status, "tgn_attention_gathered")
@@ -229,13 +312,12 @@ def fused_vector_attention_packed(q: torch.Tensor, k_g: torch.Tensor,
                          f"v_g {tuple(v_g.shape)} p_r {tuple(p_r.shape)} k {k}")
     with torch.cuda.device(dev):
         lib = build.library()
-        _check_smem(lib.tgn_attention_projected_smem_bytes(k, c, cs),
-                      f"K={k} C={c} (pre-projected)")
-        packed = pack_params(params, kv=False)
+        _check_smem(lib, _K7, bn, k, c, cs, f"K={k} C={c} (pre-projected)")
+        lay = kernel_layout(params, _K7, q.dtype, dev)
         out = torch.empty((bn, c), dtype=torch.float32, device=dev)
         status = lib.tgn_attention_projected(q.data_ptr(), k_g.data_ptr(),
                                              v_g.data_ptr(), p_r.data_ptr(),
-                                             packed.data_ptr(), bn, k, c, cs,
+                                             lay["params"].data_ptr(), bn, k, c, cs,
                                              out.data_ptr(), q.dtype == torch.bfloat16,
                                              stream_of(dev))
         build.check(status, "tgn_attention_projected")
@@ -278,16 +360,35 @@ def fused_vector_attention_packed_reference(q, k_g, v_g, p_r, params, *,
                            params, k)
 
 
-def fused_vector_attention_packed_x_reference(x, p, knn_idx, q,
-                                              params) -> torch.Tensor:
-    """Plain twin of K3: the neighbour gathers and the relative positions
-    (rounded to x's dtype), then the K6 twin with Wk/Wv rounded to x's
-    dtype, out in x's dtype."""
+def project_kv_reference(x, params) -> torch.Tensor:
+    """Plain twin of :func:`project_kv`: ``x [Wk | Wv] + [bk | bv]`` in
+    float32, Wk/Wv rounded to x's dtype first."""
+    kv = _kv_in(params, x.dtype)
+    return (x.float() @ torch.cat([kv["wk"], kv["wv"]], dim=1)
+            + torch.cat([kv["bk"], kv["bv"]]))
+
+
+def gathered_kv_attention_reference(kv, p, knn_idx, q, params,
+                                    dtype=None) -> torch.Tensor:
+    """Plain twin of K3 after its projection (``tgn_attention``): the rows
+    of kv ``[B*N, 2C]`` that knn_idx names, the relative positions rounded
+    to ``dtype`` (default q's), then K7's twin; out in ``dtype``."""
+    dtype = dtype or q.dtype
     from ..gather import index_points
 
     b, n, kk = knn_idx.shape
-    x_g = index_points(x, knn_idx).reshape(b * n * kk, -1)
+    c = kv.shape[1] // 2
+    kv_g = index_points(kv.reshape(b, n, 2 * c), knn_idx).reshape(b * n * kk, 2 * c)
     p_r = (index_points(p, knn_idx) - p[:, :, None, :]).reshape(b * n * kk, 3)
-    out = fused_vector_attention_reference(q, x_g, p_r.to(x.dtype),
-                                           _kv_in(params, x.dtype), k=kk)
-    return out.to(x.dtype)
+    out = fused_vector_attention_packed_reference(q, kv_g[:, :c], kv_g[:, c:],
+                                                  p_r.to(dtype), params, k=kk)
+    return out.to(dtype)
+
+
+def fused_vector_attention_packed_x_reference(x, p, knn_idx, q,
+                                              params) -> torch.Tensor:
+    """Plain twin of K3: :func:`project_kv_reference` of every point, then
+    :func:`gathered_kv_attention_reference`; out in x's dtype."""
+    b, n, cin = x.shape
+    kv = project_kv_reference(x.reshape(b * n, cin), params)
+    return gathered_kv_attention_reference(kv, p, knn_idx, q, params, x.dtype)
