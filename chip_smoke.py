@@ -10,10 +10,14 @@ is no CUDA device or when the port is not beside it. Phases, one line each
   1. environment: the card's name and power limit (nvidia-smi), versions;
   2. build: nvcc compiles csrc/*.cu into build/kernels/ (keyed by a hash);
   3. each hand-written kernel against its plain PyTorch version on the card,
-     at the shapes the inference path gives it, with CUDA-event times, the
-     least time the card could take for the same work (the larger of the
-     bytes over 3.35 TB/s and the operations over 67 TFLOP/s, float32) and,
-     where one PyTorch call computes the same function, that call's time
+     at the shapes the inference path gives it, with CUDA-event times (the
+     attention kernels also with the device time of CUDA-graph replays),
+     the least time the card could take for the same work (the larger of
+     the bytes over 3.35 TB/s and the operations over 67 TFLOP/s float32,
+     with bf16 rows' matrix products over 989 TFLOP/s, the bf16 tensor-core
+     peak) and, where one PyTorch call computes the same function, that
+     call's time (``torch.addmm`` beside K3's k/v projection ``project_kv``;
+     K3 at every shape one scan gives it, each with its launches a scan)
      (K1 with its cluster size and microseconds a step, beside its chain
      floor: the per-step exchange alone over 24000 steps on 16 CTAs, K1's
      and the cluster-barrier design's; K2 also on the first cloud spatially
@@ -76,9 +80,19 @@ KNN_SHAPES = ((1, 24000, 24000, 36, True, False),   # B, M, N, k, self-query,
               (1, 6000, 24000, 24, False, False),
               (1, 24000, 24000, 36, True, True))    # the first cloud, sorted
 FPS_CHAIN = (24000, 16)   # K1's chain floor: steps, cluster size
+# K3: every (B, N, K, C) one scan gives it: the fps model's stage 1 and
+# its deeper stages (24000 -> 6000 -> 1500 -> 375 -> 93 points), its 16 crops
+# of 3072 (-> 768 -> 192 -> 48 -> 12, the last with a k > n tail), then the
+# bdl model's two stride-1 stages on the 24000-point boundary cloud and its
+# 16 crops
 ATTENTION_SHAPES = ((1, 24000, 36, 32),         # B, N, K, C
                     (16, 3072, 36, 32),
-                    (1, 93, 24, 512))
+                    (1, 93, 24, 512),
+                    (1, 6000, 24, 64), (1, 1500, 24, 128), (1, 375, 24, 256),
+                    (16, 768, 24, 64), (16, 192, 24, 128), (16, 48, 24, 256),
+                    (16, 12, 24, 512),
+                    (1, 24000, 36, 16), (1, 24000, 24, 32),
+                    (16, 3072, 36, 16), (16, 3072, 24, 32))
 # the cell-attention kernels: (K, C) of each attention layer on a 24000-point
 # stride-1 stage (fps stage 1; bdl stages 1 and 2), 32 candidate slots (L8=256)
 CELL_SHAPES = ((36, 32), (36, 16), (24, 32))
@@ -90,9 +104,13 @@ N_POINTS = 24000          # the fps model's input cloud
 N_SIDE = 317              # synthetic scans of 317^2 = 100489 vertices
 CARD = {"card": None}     # the nvidia-smi line, beside every number logged
 # published H100 SXM peaks (NVIDIA's H100 datasheet): float32 outside the
-# tensor cores (every kernel here computes in float32) and HBM bandwidth
+# tensor cores, dense bf16 on the tensor cores (the matrix products of bf16
+# rows may run there) and HBM bandwidth
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# K3's launches by shape in one call of each configuration (phase_slice)
+SCAN_K3_SHAPES: dict = {}
 
 
 def log(phase: str, **fields) -> None:
@@ -126,12 +144,37 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of ``fn``: ``reps`` calls captured in one
+    CUDA graph, two replays timed with CUDA events. No host time falls
+    between the launches, where ``cuda_ms`` counts it when a call's kernels
+    are shorter than its launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (2 * reps)
+
+
 def nbytes(*tensors) -> int:
-    """Bytes of the tensors (dicts of tensors counted by their values)."""
+    """Bytes of the tensors (dicts counted by their tensor values; the
+    kernel layout a wrapper keeps in a parameter dict is not an input)."""
     total = 0
     for t in tensors:
         for v in (t.values() if isinstance(t, dict) else (t,)):
-            total += v.numel() * v.element_size()
+            if isinstance(v, torch.Tensor):
+                total += v.numel() * v.element_size()
     return total
 
 
@@ -171,12 +214,20 @@ class KernelRecord:
         self._top_bound = -1.0
 
     def add(self, shape: str, err: float, ms: float, plain_ms: float, *,
-            ops: float, moved: float, library_ms: float | None = None, **extra):
-        """``ops`` float32 operations and ``moved`` bytes (each input read
-        once, each output written once) of this call."""
+            ops: float, moved: float, library_ms: float | None = None,
+            tensor_ops: float = 0.0, **extra):
+        """``ops`` operations and ``moved`` bytes (each input read once,
+        each output written once) of this call; ``tensor_ops`` of the ops
+        are matrix products of bf16 operands, held to the bf16 tensor-core
+        peak (the rest to the float32 peak). A row with tensor_ops also
+        logs its all-float32 bound."""
         e = self.entry
-        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_ops = ((ops - tensor_ops) / F32_OPS_PER_S
+                 + tensor_ops / BF16_TC_OPS_PER_S) * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        if tensor_ops:
+            extra.update(held_to="bf16 tensor cores + float32",
+                         bound_f32_ms=max(ops / F32_OPS_PER_S * 1e3, t_bytes))
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
@@ -225,6 +276,9 @@ def phase_kernels(dev, gen):
                            "toothgroupnetwork_tpu/ops/pallas/knn_kernel.py:81")
     rec_att = KernelRecord(
         "attention", "toothgroupnetwork_tpu_torch/csrc/attention.cu",
+        "toothgroupnetwork_tpu/ops/pallas/attention_kernel.py:346")
+    rec_kv = KernelRecord(
+        "project_kv", "toothgroupnetwork_tpu_torch/csrc/attention.cu",
         "toothgroupnetwork_tpu/ops/pallas/attention_kernel.py:346")
 
     # K1's chain floor: the per-step exchange alone at the mesh-prep step
@@ -296,7 +350,9 @@ def phase_kernels(dev, gen):
 
     # K3: max |kernel - plain| <= 1e-4 in float32 (other summation order);
     # in bfloat16 (bf16 rows, q and out) within one bf16 ulp of the output.
-    # The k/v projection commutes with the gather: counted once per point
+    # The k/v projection commutes with the gather: counted once per point.
+    # Its kernel alone (project_kv): within 1e-5 of its plain version, beside
+    # torch.addmm (one call, float32 rows: the same function)
     for dtype in (torch.float32, torch.bfloat16):
         for b, n, kk, c in ATTENTION_SHAPES:
             layer = PointTransformerLayer(c, device=dev)
@@ -321,15 +377,42 @@ def phase_kernels(dev, gen):
                     raise AssertionError(f"K3 attention {dtype} B{b}/N{n}/K{kk}/C{c}: "
                                          f"max abs diff {err}")
                 tag = " bf16" if dtype != torch.float32 else ""
+                bf16 = dtype == torch.bfloat16
+                cs, proj = c // 8, 4.0 * b * n * c * c
                 rec_att.add(
                     f"B{b}/N{n}/K{kk}/C{c}{tag}", err,
                     cuda_ms(lambda: attention.fused_vector_attention_packed_x(
                         x, p, idx, q, params), 5),
                     cuda_ms(lambda: attention.fused_vector_attention_packed_x_reference(
                         x, p, idx, q, params), 3),
-                    ops=attention_ops(b * n * kk, c, c // 8) + 4.0 * b * n * c * c,
-                    moved=nbytes(x, p, idx, q, got, params), **extra)
-    return ([rec_fps, rec_knn, rec_att] + phase_cell_kernels(dev, gen, cloud)
+                    ops=attention_ops(b * n * kk, c, cs) + proj,
+                    moved=nbytes(x, p, idx, q, got, params),
+                    tensor_ops=(proj + b * n * kk * (2.0 * c * cs + 2.0 * cs * cs)
+                                if bf16 else 0.0),
+                    device_ms=graph_ms(lambda: attention.fused_vector_attention_packed_x(
+                        x, p, idx, q, params)), **extra)
+
+                x2 = x.reshape(b * n, c)
+                kv = attention.project_kv(x2, params)
+                kv_ref = attention.project_kv_reference(x2, params)
+                torch.cuda.synchronize()
+                err = float((kv - kv_ref).abs().max())
+                if not err <= 1e-5:
+                    raise AssertionError(f"project_kv {dtype} M{b * n}/C{c}: "
+                                         f"max abs diff {err}")
+                w = torch.cat([params["wk"], params["wv"]], dim=1)
+                bias = torch.cat([params["bk"], params["bv"]])
+                library_ms = None
+                if not bf16:
+                    library_ms = cuda_ms(lambda: torch.addmm(bias, x2, w), 5)
+                rec_kv.add(f"M{b * n}/Cin{c}/C{c}{tag}", err,
+                           cuda_ms(lambda: attention.project_kv(x2, params), 5),
+                           cuda_ms(lambda: attention.project_kv_reference(x2, params),
+                                   3),
+                           ops=proj, moved=nbytes(x2, w.to(dtype), bias, kv),
+                           tensor_ops=proj if bf16 else 0.0, library_ms=library_ms,
+                           device_ms=graph_ms(lambda: attention.project_kv(x2, params)))
+    return ([rec_fps, rec_knn, rec_att, rec_kv] + phase_cell_kernels(dev, gen, cloud)
             + phase_entry_kernels(dev, gen, cloud))
 
 
@@ -431,7 +514,9 @@ def phase_cell_kernels(dev, gen, cloud):
                           cuda_ms(lambda: attention.fused_vector_attention_reference(
                               q, x_g, p_r, params, k=kk), 3),
                           ops=attention_ops(n * kk, c, c // 8) + 4.0 * n * kk * c * c,
-                          moved=nbytes(x_g, p_r, q, out, params))
+                          moved=nbytes(x_g, p_r, q, out, params),
+                          device_ms=graph_ms(lambda: attention.fused_vector_attention(
+                              q, x_g, p_r, params, k=kk)))
     return [rec_x, rec_p, rec_g]
 
 
@@ -476,7 +561,9 @@ def phase_entry_kernels(dev, gen, cloud):
                                .fused_vector_attention_packed_reference(
                                    q, k_g, v_g, p_r, params, k=kk), 3),
                        ops=attention_ops(rows, c, c // 8),
-                       moved=nbytes(q, k_g, v_g, p_r, got, kv_free))
+                       moved=nbytes(q, k_g, v_g, p_r, got, kv_free),
+                       device_ms=graph_ms(lambda: attention.fused_vector_attention_packed(
+                           q, k_g, v_g, p_r, params, k=kk)))
         del k_g, v_g, p_r
 
         idx = torch.from_numpy(gen.integers(0, n, (b, n, kk)).astype(np.int32)).to(dev)
@@ -710,7 +797,35 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
     log("repeat", what=what, scan=scans[0].name, identical=True, wall_s=again_s,
         timings_s=dict(pipeline.timings))
     profile_call(pipeline, scans[0], what)
+    SCAN_K3_SHAPES[what] = k3_shapes_of_call(pipeline, scans[0])
+    log("k3_shapes", what=what, launches_by_shape=SCAN_K3_SHAPES[what],
+        not_in_phase3=sorted(set(SCAN_K3_SHAPES[what]) - {
+            f"B{b}/N{n}/K{k}/C{c}{t}" for b, n, k, c in ATTENTION_SHAPES
+            for t in ("", " bf16")}))
     return launches, pipeline
+
+
+def k3_shapes_of_call(pipeline, scan: Path) -> dict:
+    """K3's launches by shape (B, N, K, C, dtype) in one call of
+    ``pipeline``: the backbone's name for K3 wrapped for that call."""
+    from toothgroupnetwork_tpu_torch.models.point_transformer import backbone
+
+    seen: dict = {}
+    k3 = backbone.fused_vector_attention_packed_x
+
+    def counted(x, p, knn_idx, q, params):
+        b, n, kk = knn_idx.shape
+        tag = (f"B{b}/N{n}/K{kk}/C{q.shape[1]}"
+               + (" bf16" if x.dtype == torch.bfloat16 else ""))
+        seen[tag] = seen.get(tag, 0) + 1
+        return k3(x, p, knn_idx, q, params)
+
+    backbone.fused_vector_attention_packed_x = counted
+    try:
+        pipeline(str(scan))
+    finally:
+        backbone.fused_vector_attention_packed_x = k3
+    return seen
 
 
 def phase_ab(pipes: dict, scan: Path, rounds: int = 2) -> None:
@@ -756,7 +871,7 @@ def profile_call(pipeline, scan: Path, what: str) -> None:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     busy /= 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     log("profile", what=what, wall_s=wall, device_busy_s=busy,
         busy_share=busy / wall,
         device_s_by_kernel={short(name): t for name, (t, _) in top},
@@ -824,7 +939,8 @@ def main() -> int:
             max_abs_dlogit=float((bf16_out["sem_1"] - f32_out["sem_1"]).abs().max()),
             max_abs_doffset=float((bf16_out["offset_1"]
                                    - f32_out["offset_1"]).abs().max()))
-        base = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x)
+        base = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x,
+                attention.project_kv)
         cell = (cell_select.cell_select_x, cell_select.cell_select_p,
                 attention.fused_vector_attention)
         entry = (attention.fused_vector_attention_packed, gather.onehot_gather_packed)
@@ -858,6 +974,10 @@ def main() -> int:
         name = k.__name__
         rec.entry["launches"] = (launches if k in base else slice_launches["cell"]
                                  if k in cell else entry_launches)[name]
+    # each K3 shape with its launches a scan, per configuration
+    for row in records[2].entry["shapes"]:
+        row["launches_per_scan"] = {what: seen.get(row["shape"], 0)
+                                    for what, seen in SCAN_K3_SHAPES.items()}
     print(json.dumps({"kernels": [r.entry for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

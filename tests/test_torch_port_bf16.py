@@ -119,6 +119,35 @@ class TestKernelContracts:
         assert (diff <= _ulp(np.maximum(np.abs(got), np.abs(ref)))).all(), diff.max()
         assert np.mean(diff == 0) > 0.9
 
+    @pytest.mark.parametrize("b,n,kk,c", [(1, 60, 24, 128), (1, 60, 24, 256),
+                                          (2, 12, 24, 64)])
+    def test_k3_projection_then_gathered_twin(self, rng, b, n, kk, c):
+        """K3's two twins in turn on bf16 rows (project_kv_reference with
+        the bf16 k/v weights, then gathered_kv_attention_reference) against
+        the JAX entry with out_dtype=bf16, at the wide layers and on a
+        k > n tail: within one bf16 ulp + 1e-4 (two float32 results within
+        the float32 tolerance round at most one ulp apart)."""
+        _, vs, _, pp, xx, kidx = _attention_setup(rng, b, n, kk, c)
+        params = jax_attention.fold_attention_params(vs)
+        p = vs["params"]
+        q = ((xx.reshape(b * n, -1) @ p["linear_q"]["kernel"] + p["linear_q"]["bias"])
+             .astype(jnp.bfloat16))
+        xb = xx.astype(jnp.bfloat16)
+        x_g = jax_gather(xb, kidx).reshape(b * n * kk, -1)
+        p_r = ((jax_gather(pp, kidx) - pp[:, :, None, :]).reshape(-1, 3)
+               .astype(jnp.bfloat16))
+        ref = jax_attention.fused_vector_attention_packed_x(
+            q, x_g, p_r, params, k=kk, out_dtype=jnp.bfloat16)
+        tp = _params(params)
+        kv = attention.project_kv_reference(_t(_bf16_np(xb)).to(BF16).reshape(b * n, c),
+                                            tp)
+        got = attention.gathered_kv_attention_reference(
+            kv, _t(np.asarray(pp)), _t(np.asarray(kidx)), _t(_bf16_np(q)).to(BF16), tp)
+        assert got.dtype == BF16
+        ref, got = _bf16_np(ref), _bf16_np(got)
+        diff = np.abs(got - ref)
+        assert (diff <= _ulp(np.maximum(np.abs(got), np.abs(ref))) + 1e-4).all(), diff.max()
+
     @pytest.mark.parametrize("c", [16, 32])
     def test_k6_twin_on_bf16_rows(self, rng, c):
         """bf16 x_g and p_r widened to f32, f32 weights, f32 out."""

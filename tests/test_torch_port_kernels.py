@@ -237,8 +237,9 @@ class TestKernelsOnCard:
                                          (77, 40, 24)])
     def test_project_kv(self, cuda_device, gen, m, cin, c, dtype):
         """tgn_project_kv within 1e-5 of project_kv_reference: float32 rows
-        on FMA units, bf16 rows on the tensor cores (bf16-rounded weights,
-        exact products); ragged rows, columns and depths padded with zeros."""
+        on the FMA units, bf16 rows on the tensor cores (exact products of
+        bf16-rounded weights); ragged rows, columns and depths padded with
+        zeros."""
         port = PointTransformerLayer(c, device=cuda_device)
         randomize_(port, torch.Generator().manual_seed(0))
         params = attention.fold_attention_params(port)

@@ -252,6 +252,58 @@ class TestAttention:
                 _t(np.asarray(q)), attention.fold_attention_params(port))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
 
+    @pytest.mark.parametrize("b,n,kk,c", [(1, 60, 24, 128), (1, 60, 24, 256),
+                                          (2, 12, 24, 64)])
+    def test_projection_then_gathered_twin(self, rng, b, n, kk, c):
+        """K3's two kernels' twins in turn, project_kv_reference (every
+        point) then gathered_kv_attention_reference, against the JAX
+        ``fused_vector_attention_packed_x`` (interpret mode) at the main
+        path's wide layers (K = 24 on 60 points) and, with 12 points, on the
+        kNN's k > n tail (indices repeated, the last index 0): within 2e-5 in float32."""
+        lay, vs, port, pp, xx, kidx = _attention_setup(rng, b, n, kk, c)
+        pw = vs["params"]
+        q = xx.reshape(b * n, -1) @ pw["linear_q"]["kernel"] + pw["linear_q"]["bias"]
+        from toothgroupnetwork_tpu.ops.gather import index_points as jax_gather
+
+        if kk > n:   # the tail repeats an index; its last entries are index 0
+            assert (np.asarray(kidx)[..., -1] == 0).all()
+        x_g = jax_gather(xx, kidx).reshape(b * n * kk, -1)
+        p_r = (jax_gather(pp, kidx) - pp[:, :, None, :]).reshape(-1, 3)
+        ref = fused_vector_attention_packed_x(q, x_g, p_r, jax_fold(vs), k=kk)
+        with torch.no_grad():
+            params = attention.fold_attention_params(port)
+            kv = attention.project_kv_reference(_t(np.asarray(xx)).reshape(b * n, c),
+                                                params)
+            got = attention.gathered_kv_attention_reference(
+                kv, _t(np.asarray(pp)), _t(np.asarray(kidx)), _t(np.asarray(q)), params)
+        assert kv.shape == (b * n, 2 * c) and kv.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+    def test_folded_parameters_follow_the_layer(self, rng):
+        """The layer folds its parameters once and keeps them (with the
+        kernel layouts) between forwards; an in-place change of a weight or
+        a buffer, or weights loaded after a forward, is seen by the next
+        forward, whose output equals a freshly built layer's."""
+        _, _, port, pp, xx, kidx = _attention_setup(rng, 1, 64, 8, 16)
+        _, _, other, *_ = _attention_setup(rng, 1, 64, 8, 16)
+        p, x, idx = (_t(np.asarray(a)) for a in (pp, xx, kidx))
+
+        def fresh_output():
+            fresh = PointTransformerLayer(16, device="cpu")
+            fresh.load_state_dict(port.state_dict())
+            return fresh(p, x, idx)
+
+        with torch.no_grad():
+            port(p, x, idx)
+            folded = port.kernel_params()
+            assert port.kernel_params() is folded
+            port.linear_k.weight.mul_(2.0)
+            port.linear_w_bn0.var.add_(0.5)
+            assert port.kernel_params() is not folded
+            assert torch.equal(port(p, x, idx), fresh_output())
+            port.load_state_dict(other.state_dict())
+            assert torch.equal(port(p, x, idx), fresh_output())
+
     def test_fold_matches_jax_fold(self, rng):
         _, vs, port, *_ = _attention_setup(rng, 1, 40, 8, 16)
         ref = jax_fold(vs)

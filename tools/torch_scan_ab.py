@@ -1,6 +1,7 @@
 """In-turn comparison of two checkouts of the PyTorch port on one card.
 
     python3 tools/torch_scan_ab.py --other DIR [--config JSON] [--steady 3]
+        [--min-share 0.999]
 
 Writes random full-width fps + bdl weights (``save_npz``) and three synthetic
 100489-vertex scans, then runs the default inference pipeline of this
@@ -8,13 +9,15 @@ checkout ("this") and of the checkout at DIR ("other") in separate
 processes, in the order other, this, this, other. Each process serves the
 three scans once, then the first scan ``--steady`` more times. It prints one
 JSON line per process and a summary: whether every process gave the same
-labels and instances on every scan, and the median wall and per-phase
-seconds of the steady calls of each checkout, beside the card's nvidia-smi
-name and power limit. Each process also times the fused attention kernel K3
-(float32, CUDA events, mean of 5 calls after one) at chip_smoke's three
-ATTENTION_SHAPES, and K1 and K2 (mean of 3 after one) at three main-path
-shapes each, on the same random inputs. Needs one CUDA card; exits
-non-zero without one.
+labels and instances on every scan, the share of vertices whose label and
+instance (and whose label alone) equal those of the first process (run 0,
+"other") in each later process, and the median wall and per-phase seconds of the steady calls of
+each checkout, beside the card's nvidia-smi name and power limit. Each
+process also times the fused attention K3 (CUDA events, mean of 5 calls
+after one) at every chip_smoke ATTENTION_SHAPES entry in float32 and
+bfloat16, and K1 and K2 (mean of 3 after one) at three main-path shapes
+each, on the same random inputs. Needs one CUDA card; exits non-zero
+without one, and with 2 when a share falls below --min-share.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 sys.path.insert(0, ".")
 from toothgroupnetwork_tpu_torch.pipelines.tgn import TgnInferencePipeline
 
-fps, bdl, config, steady, out, *scans = sys.argv[1:]
+fps, bdl, config, steady, out, shapes, *scans = sys.argv[1:]
 config = json.loads(config) if config else None
 pipe = TgnInferencePipeline(fps, bdl, config, device="cuda")
 res = {"outputs": [], "calls": []}
@@ -72,16 +75,19 @@ def ms(call, reps):
 
 res["k3_ms"], res["k1_ms"], res["k2_ms"] = {}, {}, {}
 gen = torch.Generator().manual_seed(0)
-for b, n, kk, c in ((1, 24000, 36, 32), (16, 3072, 36, 32), (1, 93, 24, 512)):
+for b, n, kk, c in json.loads(shapes):
     layer = randomize_(PointTransformerLayer(c, device="cuda"), gen)
     p = (torch.randn((b, n, 3), generator=gen) * 0.2).cuda()
-    x = (torch.randn((b, n, c), generator=gen) * 0.5).cuda()
+    x32 = (torch.randn((b, n, c), generator=gen) * 0.5).cuda()
     idx, _ = knn_self(p, kk)
-    with torch.no_grad():
-        params = attention.fold_attention_params(layer)
-        q = layer.linear_q(x).reshape(b * n, c).contiguous()
-        res["k3_ms"][f"B{b}/N{n}/K{kk}/C{c}"] = ms(
-            lambda: attention.fused_vector_attention_packed_x(x, p, idx, q, params), 5)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        with torch.no_grad():
+            params = attention.fold_attention_params(layer, dtype)
+            q = layer.linear_q(x32).reshape(b * n, c).to(dtype).contiguous()
+            tag = " bf16" if dtype == torch.bfloat16 else ""
+            res["k3_ms"][f"B{b}/N{n}/K{kk}/C{c}{tag}"] = ms(
+                lambda: attention.fused_vector_attention_packed_x(x, p, idx, q, params), 5)
 for b, n, m in ((1, 100489, 24000), (1, 24000, 6000), (16, 3072, 768)):
     p = torch.randn((b, n, 3), generator=gen).cuda()
     res["k1_ms"][f"[{b},{n}]->{m}"] = ms(lambda: fps.fps(p, m), 3)
@@ -98,6 +104,8 @@ def main() -> int:
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--config", default="", help="model_parameter config as JSON")
     ap.add_argument("--steady", type=int, default=3)
+    ap.add_argument("--min-share", type=float, default=0.999,
+                    help="least share of vertices equal to run 0's")
     args = ap.parse_args()
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import torch
@@ -123,7 +131,8 @@ def main() -> int:
             out = work / f"run{i}.json"
             subprocess.run([sys.executable, "-c", RUNNER, str(ckpts["fps"]),
                             str(ckpts["bdl"]), args.config, str(args.steady),
-                            str(out), *map(str, scans)],
+                            str(out), json.dumps(chip_smoke.ATTENTION_SHAPES),
+                            *map(str, scans)],
                            cwd=roots[name], check=True)
             res = json.loads(out.read_text())
             runs.append((name, res))
@@ -131,14 +140,32 @@ def main() -> int:
                               "k3_ms": res["k3_ms"], "k1_ms": res["k1_ms"],
                               "k2_ms": res["k2_ms"], "card": smi}), flush=True)
     same = all(r["outputs"] == runs[0][1]["outputs"] for _, r in runs)
+    shares = [share_equal(r["outputs"], runs[0][1]["outputs"]) for _, r in runs[1:]]
+    label_shares = [share_equal(r["outputs"], runs[0][1]["outputs"], labels_only=True)
+                    for _, r in runs[1:]]
     medians = {}
     for name in ("other", "this"):
         calls = [c for n, r in runs if n == name for c in r["calls"]]
         medians[name] = {k: float(np.median([c[k] for c in calls]))
                          for k in calls[0]}
-    print(json.dumps({"outputs_identical": same, "median_s": medians,
-                      "config": args.config, "card": smi}))
-    return 0 if same else 2
+    print(json.dumps({"outputs_identical": same, "share_equal_to_run0": shares,
+                      "label_share_equal_to_run0": label_shares,
+                      "median_s": medians, "config": args.config, "card": smi}))
+    return 0 if min(shares) >= args.min_share else 2
+
+
+def share_equal(outputs, ref, labels_only: bool = False) -> float:
+    """Share of vertices, over all scans, whose label and instance (or
+    label alone) equal those of ``ref`` (lists of [labels, instances] per
+    scan)."""
+    hit = total = 0
+    for (sem, ins), (sem0, ins0) in zip(outputs, ref):
+        same = np.asarray(sem) == np.asarray(sem0)
+        if not labels_only:
+            same &= np.asarray(ins) == np.asarray(ins0)
+        hit += int(same.sum())
+        total += same.size
+    return hit / total
 
 
 if __name__ == "__main__":

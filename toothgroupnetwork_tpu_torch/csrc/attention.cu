@@ -35,42 +35,51 @@
 // body adds it after its dot; k and v stay float32 (preferred_element_type).
 //
 // What bounds it on the H100, and what the design does about it:
-// * The k/v projection is the one large product: 4 Cin C operations a point
-//   (K3) or a gathered row (K6). K3 projects each point once, since
-//   k_g[j] = (x Wk + bk)[idx[j]]: tgn_project_kv is a 64 x 64 tile product
-//   into a float32 scratch kv [B*N, 2C] (6.1 MB at B1/24000/C32, L2
-//   resident for the attention launch that follows). The TPU kernel paid
-//   the K-fold work with its kron(I_K, W) dot, free on the MXU; on CUDA
-//   cores it was 4.4x (C32) to 9x (C512) the function's operations. K6's
-//   contract hands it K distinct rows, so its K-fold product is real: a CTA
-//   runs it as 64 x 64 tiles over its R*K rows with Wk|Wv staged in shared
-//   memory a chunk of 32 input channels at a time.
+// * The k/v projection: 4 Cin C operations a point (K3) or a gathered row
+//   (K6). K3 projects each point once, since k_g[j] = (x Wk + bk)[idx[j]]:
+//   tgn_project_kv is a 64 x 64 tile product into a float32 scratch kv
+//   [B*N, 2C] (6.1 MB at B1/24000/C32, L2 resident for the attention launch
+//   that follows). The TPU kernel paid the K-fold work with its
+//   kron(I_K, W) dot, free on the MXU; on CUDA cores it was 4.4x (C32) to
+//   9x (C512) the function's operations. K6's contract hands it K distinct
+//   rows, so its K-fold product is real: a CTA runs it as 64 x 64 tiles over
+//   its R*K rows, Wk|Wv staged in shared memory once when Cin <= 32.
 //   bf16 rows run the tile product on the tensor cores (mma.sync m16n8k16,
 //   float32 accumulators). K3's weights are the bf16-rounded Wk/Wv of its
 //   contract, so each product is exact. K6's weights are float32: each is
 //   split into three bf16 pieces (hi + mid + lo, exact to float32's 24
 //   bits), three products a tile, so no float32 weight is rounded.
-//   float32 rows run a register-tiled FMA product (4 x 4 outputs a
-//   thread), never TF32.
-// * After the projection the layer is a chain of small steps per row. A CTA
-//   takes R query rows (R*K neighbour rows; R from the shapes, smaller when
-//   the launch would leave SMs idle) and stages the folded parameters of
-//   its channels once in shared memory; every step is one pass of all 256
-//   threads over the CTA's rows, so a row costs no barrier of its own:
-//   (2)+(3a) over (neighbour, channel), (3b) and (3c) over (neighbour,
-//   group), (4) one warp per (row, group) with shuffle max and sum, (5)
-//   over (row, channel). Step (3b) stays float32 on the CUDA cores: its
-//   input u is a float32 intermediate and rounding it for the tensor cores
-//   would break the float32 compute of the contract; at the main-path
-//   shapes it is under a tenth of the projection's operations.
+//   float32 rows: K3's projection, once per point, runs on the FMA units
+//   (4 x 4 sums a thread, each in order with float32 rounding at every
+//   step, as a plain loop sums); K6's K-fold product, 36 times larger, runs
+//   as three TF32 products on the tensor cores (each operand split into a
+//   TF32 high part and the TF32 of its remainder, about 21 of float32's 24
+//   bits; the tensor cores' float32 sums truncate, about 1e-5 off at C512
+//   on an H100, inside K6's 1e-4), never plain TF32. Each staging pass
+//   issues all its loads before it stores any: 8 loads in flight a thread.
+// * After the projection the layer is a chain of small steps per row, bound
+//   by latency and by shared-memory traffic, not by operations. A CTA takes
+//   R query rows (R*K neighbour rows; R from the shapes, smaller when the
+//   launch would leave SMs idle) and stages the folded parameters of its
+//   channels in shared memory with one float4 pass (laid out per CTA once
+//   per parameter set, tgn_attention_param_map); each step is one pass of all 256
+//   threads over the CTA's rows, so a row costs no barrier of its own.
+//   Steps (2)+(3a) and (5) give each thread a fixed channel (its parameters
+//   in registers) and walk the neighbour rows, four rows' loads in flight;
+//   (2)+(3a) keeps u and v + pe side by side in shared memory (K6 writes
+//   them over its projected k and v). (3b) and (3c) give a thread one
+//   neighbour row and four output groups (one float4 weight read a step).
+//   (4) is one warp per (row, group) with shuffle max and sum.
+//   (3b) stays float32 on the CUDA cores: its input u is a float32
+//   intermediate, and rounding it to bf16 for the tensor cores would break
+//   the float32 compute of the contract (2 K C cs operations a row, K/16
+//   times the projection's 4 C^2 a point).
 // * At C >= 256 a row alone fills a CTA, and B1/93/K24/C512 had 93 CTAs for
 //   132 SMs. The channels are split over a cluster of S = C/128 CTAs (<= 4):
 //   each projects, gathers and aggregates its C/S channels and sums its part
 //   of (3b); the parts are added in rank order through distributed shared
 //   memory (the same order in every CTA: deterministic, no atomics), and
 //   every CTA then runs (3c)-(4) for the whole row.
-// (v + pe) is recomputed in step (5) from kv (L2) and pe0 instead of kept,
-// so shared memory holds u [R*K, C/S] (K6: k|v) and [R*K, cs] twice.
 
 #include <cooperative_groups.h>
 
@@ -90,6 +99,7 @@ constexpr int kTile = 64;   // rows and columns of a projection tile
 constexpr int kDepth = 32;  // input channels staged at a time
 constexpr int kPadF = 4;    // float padding of a staged row (16-byte aligned)
 constexpr int kPadH = 8;    // bf16 padding: conflict-free fragment reads
+constexpr int kStaged = kTile * kDepth / kThreads;  // elements a thread stages
 constexpr int kStageF32 = 2 * 4 * kDepth * (kTile + kPadF);
 constexpr int kStageBf16 = 2 * 4 * kTile * (kDepth + kPadH);  // x + 3 weight pieces
 constexpr int kStageBytes = kStageF32 > kStageBf16 ? kStageF32 : kStageBf16;
@@ -100,6 +110,17 @@ struct Cols {
     int c, cw, g0;
     __device__ int operator()(int n) const { return n < cw ? g0 + n : c + g0 + n - cw; }
 };
+
+// Read-only loads through the non-coherent path: the compiler may issue
+// them ahead of the shared-memory stores between them.
+__device__ __forceinline__ float ldg(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p, size_t i) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p) + i)));
+}
+__device__ __forceinline__ __nv_bfloat16 ldg_raw(const __nv_bfloat16* p, size_t i) {
+    return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p) + i));
+}
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
     return *reinterpret_cast<const uint32_t*>(p);
@@ -115,62 +136,192 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One output tile of the projection, float32 rows: out[m * ldo + n] =
-// sum_i x[m * cin + i] W[i, cols(n)] + bias[cols(n)] for m < rows (<= 64)
-// and n0 <= n < min(n0 + 64, ncols); w is [Cin, 2C] row-major. Each thread
-// keeps 4 x 4 sums; x is staged transposed so both operands are float4
-// reads. Every thread of the CTA calls it.
-__device__ void tile_f32(const float* x, int rows, int cin, const float* w, int c2,
-                         Cols cols, const float* bias, float* out, int ldo, int n0,
-                         int ncols, unsigned char* stage) {
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+    return r;
+}
+
+// v = hi + lo + (about 2^-22 |v|), both parts TF32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(v);
+    lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// d += a b on the tensor cores: A 16x8 (row), B 8x8 (col), tf32, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The projection of `rows` rows of x (row-major [rows, cin]), float32 rows
+// on the FMA units: out[m * ldo + n] = sum_i x[m, i] W[i, cols(n)] +
+// bias[cols(n)] for n < ncols, in 64 x 64 tiles; wt is Wk|Wv transposed,
+// [2C, Cin]. Each thread keeps 4 x 4 sums, each over i in order as a plain
+// loop runs it, with float32 rounding at every step; both operands are
+// staged with i outermost so they are float4 reads. Every thread of the
+// CTA calls it.
+__device__ void project_fma(const float* x, int rows, int cin, const float* wt,
+                            Cols cols, const float* bias, float* out, int ldo, int ncols,
+                            unsigned char* stage) {
     constexpr int ld = kTile + kPadF;
     float* xs = reinterpret_cast<float*>(stage);  // [kDepth][ld], x transposed
-    float* ws = xs + kDepth * ld;                 // [kDepth][ld]
+    float* ws = xs + kDepth * ld;                 // [kDepth][ld], W [i][n]
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    float acc[4][4] = {};
-    for (int i0 = 0; i0 < cin; i0 += kDepth) {
-        __syncthreads();  // the previous chunk is consumed
-        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-            const int m = e / kDepth, i = e % kDepth;
-            xs[i * ld + m] = (m < rows && i0 + i < cin) ? x[(size_t)m * cin + i0 + i] : 0.f;
-        }
-        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-            const int i = e / kTile, n = e % kTile;
-            ws[i * ld + n] = (n0 + n < ncols && i0 + i < cin)
-                                 ? w[(size_t)(i0 + i) * c2 + cols(n0 + n)] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int i = 0; i < kDepth; ++i) {
-            const float4 a4 = *reinterpret_cast<const float4*>(xs + i * ld + ty * 4);
-            const float4 b4 = *reinterpret_cast<const float4*>(ws + i * ld + tx * 4);
-            const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+    for (int n0 = 0; n0 < ncols; n0 += kTile) {
+        for (int m0 = 0; m0 < rows; m0 += kTile) {
+            float acc[4][4] = {};
+            for (int i0 = 0; i0 < cin; i0 += kDepth) {
+                float xv[kStaged], wv[kStaged];
+#pragma unroll
+                for (int u = 0; u < kStaged; ++u) {
+                    const int e = threadIdx.x + u * kThreads;
+                    const int r = e / kDepth, i = e % kDepth;
+                    xv[u] = (m0 + r < rows && i0 + i < cin)
+                                ? ldg(x, (size_t)(m0 + r) * cin + i0 + i) : 0.f;
+                    wv[u] = (n0 + r < ncols && i0 + i < cin)
+                                ? ldg(wt, (size_t)cols(n0 + r) * cin + i0 + i) : 0.f;
+                }
+                __syncthreads();  // the previous tile is consumed
+#pragma unroll
+                for (int u = 0; u < kStaged; ++u) {
+                    const int e = threadIdx.x + u * kThreads;
+                    xs[(e % kDepth) * ld + e / kDepth] = xv[u];
+                    ws[(e % kDepth) * ld + e / kDepth] = wv[u];
+                }
+                __syncthreads();
+#pragma unroll 4
+                for (int i = 0; i < kDepth; ++i) {
+                    const float4 a4 = *reinterpret_cast<const float4*>(xs + i * ld + 4 * ty);
+                    const float4 b4 = *reinterpret_cast<const float4*>(ws + i * ld + 4 * tx);
+                    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+                    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+                        for (int q = 0; q < 4; ++q) {
+                            acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+                        }
+                    }
+                }
+            }
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
 #pragma unroll
-                for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
+                for (int q = 0; q < 4; ++q) {
+                    const int m = m0 + ty * 4 + r, n = n0 + tx * 4 + q;
+                    if (m < rows && n < ncols) {
+                        out[(size_t)m * ldo + n] = acc[r][q] + bias[cols(n)];
+                    }
+                }
             }
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-            const int m = ty * 4 + r, n = n0 + tx * 4 + s;
-            if (m < rows && n < ncols) out[(size_t)m * ldo + n] = acc[r][s] + bias[cols(n)];
         }
     }
 }
 
-// The same tile from bf16 rows on the tensor cores: wt holds kPieces bf16
+// The projection of `rows` rows of x (row-major [rows, cin]), float32 rows:
+// out[m * ldo + n] = sum_i x[m, i] W[i, cols(n)] + bias[cols(n)] for
+// n < ncols, in 64 x 64 tiles; wt is Wk|Wv transposed, [2C, Cin] float32.
+// Each product is three TF32 products on the tensor cores, x_lo W_hi +
+// x_hi W_lo + x_hi W_hi, every operand split into a TF32 high part and the
+// TF32 of its remainder: about 21 of float32's 24 bits, never plain TF32
+// (which keeps 10). Warp w computes rows 16 (w % 4) .. + 16 and columns
+// 32 (w / 4) .. + 32 of a tile. With one chunk of depth (cin <= 32) a column
+// tile's W is staged once for all row tiles. Every thread of the CTA calls
+// it.
+__device__ void project_tf32x3(const float* x, int rows, int cin, const float* wt, int c2,
+                            Cols cols, const float* bias, float* out, int ldo, int ncols,
+                            unsigned char* stage) {
+    constexpr int ld = kDepth + kPadF;  // conflict-free fragment reads
+    float* xs = reinterpret_cast<float*>(stage);  // [kTile][ld]
+    float* ws = xs + kTile * ld;                  // [kTile][ld], n-major
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
+    const bool one_chunk = cin <= kDepth;
+    for (int n0 = 0; n0 < ncols; n0 += kTile) {
+        for (int m0 = 0; m0 < rows; m0 += kTile) {
+            float acc[4][4] = {};
+            for (int i0 = 0; i0 < cin; i0 += kDepth) {
+                float xv[kStaged];
+#pragma unroll
+                for (int u = 0; u < kStaged; ++u) {
+                    const int e = threadIdx.x + u * kThreads;
+                    const int m = e / kDepth, i = e % kDepth;
+                    xv[u] = (m0 + m < rows && i0 + i < cin)
+                                ? ldg(x, (size_t)(m0 + m) * cin + i0 + i) : 0.f;
+                }
+                __syncthreads();  // the previous tile is consumed
+#pragma unroll
+                for (int u = 0; u < kStaged; ++u) {
+                    const int e = threadIdx.x + u * kThreads;
+                    xs[(e / kDepth) * ld + e % kDepth] = xv[u];
+                }
+                if (!one_chunk || m0 == 0) {
+                    float wv[kStaged];
+#pragma unroll
+                    for (int u = 0; u < kStaged; ++u) {
+                        const int e = threadIdx.x + u * kThreads;
+                        const int n = e / kDepth, i = e % kDepth;
+                        wv[u] = (n0 + n < ncols && i0 + i < cin)
+                                    ? ldg(wt, (size_t)cols(n0 + n) * cin + i0 + i) : 0.f;
+                    }
+#pragma unroll
+                    for (int u = 0; u < kStaged; ++u) {
+                        const int e = threadIdx.x + u * kThreads;
+                        ws[(e / kDepth) * ld + e % kDepth] = wv[u];
+                    }
+                }
+                __syncthreads();
+#pragma unroll
+                for (int k0 = 0; k0 < kDepth; k0 += 8) {
+                    const float* xa = xs + (wm + g) * ld + k0 + t;
+                    uint32_t ah[4], al[4];
+                    split_tf32(xa[0], ah[0], al[0]);
+                    split_tf32(xa[8 * ld], ah[1], al[1]);
+                    split_tf32(xa[4], ah[2], al[2]);
+                    split_tf32(xa[8 * ld + 4], ah[3], al[3]);
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt) {
+                        const float* wb = ws + (wn + nt * 8 + g) * ld + k0 + t;
+                        uint32_t bh0, bl0, bh1, bl1;
+                        split_tf32(wb[0], bh0, bl0);
+                        split_tf32(wb[4], bh1, bl1);
+                        mma_tf32(acc[nt], al, bh0, bh1);
+                        mma_tf32(acc[nt], ah, bl0, bl1);
+                        mma_tf32(acc[nt], ah, bh0, bh1);
+                    }
+                }
+            }
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+                for (int h = 0; h < 4; ++h) {
+                    const int m = m0 + wm + g + 8 * (h / 2);
+                    const int n = n0 + wn + nt * 8 + 2 * t + h % 2;
+                    if (m < rows && n < ncols) {
+                        out[(size_t)m * ldo + n] = acc[nt][h] + bias[cols(n)];
+                    }
+                }
+            }
+        }
+    }
+}
+
+// The same from bf16 rows on the tensor cores: wt holds kPieces bf16
 // pieces of W transposed, [kPieces, 2C, Cin], whose products are summed
 // (1: the bf16 weights of K3; 3: float32 weights split hi + mid + lo). Warp
-// w computes rows 16 (w % 4) .. + 16 and columns 32 (w / 4) .. + 32 as four
-// m16n8k16 products a 16-deep step.
+// w computes rows 16 (w % 4) .. + 16 and columns 32 (w / 4) .. + 32 of a
+// tile as four m16n8k16 products (times the pieces) a 16-deep step.
 template <int kPieces>
-__device__ void tile_bf16(const __nv_bfloat16* x, int rows, int cin,
-                          const __nv_bfloat16* wt, int c2, Cols cols, const float* bias,
-                          float* out, int ldo, int n0, int ncols, unsigned char* stage) {
+__device__ void project_bf16(const __nv_bfloat16* x, int rows, int cin,
+                             const __nv_bfloat16* wt, int c2, Cols cols,
+                             const float* bias, float* out, int ldo, int ncols,
+                             unsigned char* stage) {
     constexpr int ld = kDepth + kPadH;
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage);  // [kTile][ld]
     __nv_bfloat16* ws = xs + kTile * ld;                          // [kPieces][kTile][ld]
@@ -178,93 +329,105 @@ __device__ void tile_bf16(const __nv_bfloat16* x, int rows, int cin,
     const int g = lane / 4, t = lane % 4;
     const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    float acc[4][4] = {};
-    for (int i0 = 0; i0 < cin; i0 += kDepth) {
-        __syncthreads();
-        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-            const int m = e / kDepth, i = e % kDepth;
-            xs[m * ld + i] = (m < rows && i0 + i < cin) ? x[(size_t)m * cin + i0 + i] : zero;
-        }
-        for (int e = threadIdx.x; e < kPieces * kTile * kDepth; e += kThreads) {
-            const int i = e % kDepth, n = (e / kDepth) % kTile, pc = e / (kDepth * kTile);
-            ws[(pc * kTile + n) * ld + i] =
-                (n0 + n < ncols && i0 + i < cin)
-                    ? wt[((size_t)pc * c2 + cols(n0 + n)) * cin + i0 + i] : zero;
-        }
-        __syncthreads();
+    const bool one_chunk = cin <= kDepth;
+    for (int n0 = 0; n0 < ncols; n0 += kTile) {
+        for (int m0 = 0; m0 < rows; m0 += kTile) {
+            float acc[4][4] = {};
+            for (int i0 = 0; i0 < cin; i0 += kDepth) {
+                __nv_bfloat16 xv[kStaged];
 #pragma unroll
-        for (int k0 = 0; k0 < kDepth; k0 += 16) {
-            const __nv_bfloat16* xa = xs + (wm + g) * ld + k0 + 2 * t;
-            const uint32_t a[4] = {ld32(xa), ld32(xa + 8 * ld), ld32(xa + 8),
-                                   ld32(xa + 8 * ld + 8)};
+                for (int u = 0; u < kStaged; ++u) {
+                    const int e = threadIdx.x + u * kThreads;
+                    const int m = e / kDepth, i = e % kDepth;
+                    xv[u] = (m0 + m < rows && i0 + i < cin)
+                                ? ldg_raw(x, (size_t)(m0 + m) * cin + i0 + i) : zero;
+                }
+                __syncthreads();  // the previous tile is consumed
+#pragma unroll
+                for (int u = 0; u < kStaged; ++u) {
+                    const int e = threadIdx.x + u * kThreads;
+                    xs[(e / kDepth) * ld + e % kDepth] = xv[u];
+                }
+                for (int pc = 0; pc < kPieces && (!one_chunk || m0 == 0); ++pc) {
+                    __nv_bfloat16 wv[kStaged];  // one piece at a time: fewer registers
+#pragma unroll
+                    for (int u = 0; u < kStaged; ++u) {
+                        const int e = threadIdx.x + u * kThreads;
+                        const int i = e % kDepth, n = e / kDepth;
+                        wv[u] = (n0 + n < ncols && i0 + i < cin)
+                                    ? ldg_raw(wt, ((size_t)pc * c2 + cols(n0 + n)) * cin
+                                                      + i0 + i)
+                                    : zero;
+                    }
+#pragma unroll
+                    for (int u = 0; u < kStaged; ++u) {
+                        const int e = threadIdx.x + u * kThreads;
+                        ws[(pc * kTile + e / kDepth) * ld + e % kDepth] = wv[u];
+                    }
+                }
+                __syncthreads();
+#pragma unroll
+                for (int k0 = 0; k0 < kDepth; k0 += 16) {
+                    const __nv_bfloat16* xa = xs + (wm + g) * ld + k0 + 2 * t;
+                    const uint32_t a[4] = {ld32(xa), ld32(xa + 8 * ld), ld32(xa + 8),
+                                           ld32(xa + 8 * ld + 8)};
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+                        for (int pc = 0; pc < kPieces; ++pc) {
+                            const __nv_bfloat16* wb =
+                                ws + (pc * kTile + wn + nt * 8 + g) * ld + k0 + 2 * t;
+                            mma_bf16(acc[nt], a, ld32(wb), ld32(wb + 8));
+                        }
+                    }
+                }
+            }
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-                for (int pc = 0; pc < kPieces; ++pc) {
-                    const __nv_bfloat16* wb = ws + (pc * kTile + wn + nt * 8 + g) * ld + k0 + 2 * t;
-                    mma_bf16(acc[nt], a, ld32(wb), ld32(wb + 8));
+                for (int h = 0; h < 4; ++h) {
+                    const int m = m0 + wm + g + 8 * (h / 2);
+                    const int n = n0 + wn + nt * 8 + 2 * t + h % 2;
+                    if (m < rows && n < ncols) {
+                        out[(size_t)m * ldo + n] = acc[nt][h] + bias[cols(n)];
+                    }
                 }
             }
         }
     }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-            const int m = wm + g + 8 * (h / 2), n = n0 + wn + nt * 8 + 2 * t + h % 2;
-            if (m < rows && n < ncols) out[(size_t)m * ldo + n] = acc[nt][h] + bias[cols(n)];
-        }
-    }
 }
 
+// kPieces: bf16 rows, the bf16 weight pieces (1 or 3); float32 rows, 0 for
+// the FMA units, 3 for three TF32 products on the tensor cores
 template <typename T, int kPieces>
-__device__ void project_tile(const T* x, int rows, int cin, const void* w, int c2,
-                             Cols cols, const float* bias, float* out, int ldo, int n0,
-                             int ncols, unsigned char* stage) {
-    if constexpr (std::is_same_v<T, float>) {
-        tile_f32(x, rows, cin, static_cast<const float*>(w), c2, cols, bias, out, ldo, n0,
-                 ncols, stage);
+__device__ void project(const T* x, int rows, int cin, const void* w, int c2, Cols cols,
+                        const float* bias, float* out, int ldo, int ncols,
+                        unsigned char* stage) {
+    if constexpr (std::is_same_v<T, float> && kPieces == 0) {
+        project_fma(x, rows, cin, static_cast<const float*>(w), cols, bias, out, ldo, ncols,
+                    stage);
+    } else if constexpr (std::is_same_v<T, float>) {
+        project_tf32x3(x, rows, cin, static_cast<const float*>(w), c2, cols, bias, out, ldo,
+                       ncols, stage);
     } else {
-        tile_bf16<kPieces>(x, rows, cin, static_cast<const __nv_bfloat16*>(w), c2, cols,
-                           bias, out, ldo, n0, ncols, stage);
+        project_bf16<kPieces>(x, rows, cin, static_cast<const __nv_bfloat16*>(w), c2, cols,
+                              bias, out, ldo, ncols, stage);
     }
 }
 
 // K3 step (1): kv [M, 2C] = x [M, Cin] [Wk | Wv] + [bk | bv], one 64 x 64
-// tile a CTA.
+// tile a CTA. Cols{c, c, n0} maps the tile's column n to n0 + n (n0 > 0
+// only where 64 <= c or 2c - n0 <= c).
 template <typename T, int kPieces>
 __global__ void __launch_bounds__(kThreads)
 project_kv_kernel(const T* x, const void* w, const float* bias, int m, int cin, int c,
                   float* kv) {
     __shared__ __align__(16) unsigned char stage[kStageBytes];
     const size_t row0 = (size_t)blockIdx.x * kTile;
-    project_tile<T, kPieces>(x + row0 * cin, min(kTile, m - (int)row0), cin, w, 2 * c,
-                             Cols{c, c, 0}, bias, kv + row0 * 2 * c, 2 * c,
-                             (int)blockIdx.y * kTile, 2 * c, stage);
-}
-
-// Offsets of the packed parameter buffer (all matrices [in, out] row-major):
-// a0 [9] b0 [3] a1 [3*C] b1 [C] s0 [C] t0 [C] w0 [C*cs] c0 [cs] s1 [cs]
-// t1 [cs] w1 [cs*cs] c1 [cs]
-struct Params {
-    const float *a0, *b0, *a1, *b1, *s0, *t0, *w0, *c0, *s1, *t1, *w1, *c1;
-};
-
-__device__ Params unpack(const float* base, int c, int cs) {
-    Params r;
-    r.a0 = base; base += 9;
-    r.b0 = base; base += 3;
-    r.a1 = base; base += 3 * c;
-    r.b1 = base; base += c;
-    r.s0 = base; base += c;
-    r.t0 = base; base += c;
-    r.w0 = base; base += (size_t)c * cs;
-    r.c0 = base; base += cs;
-    r.s1 = base; base += cs;
-    r.t1 = base; base += cs;
-    r.w1 = base; base += (size_t)cs * cs;
-    r.c1 = base;
-    return r;
+    const int n0 = (int)blockIdx.y * kTile;
+    project<T, kPieces>(x + row0 * cin, min(kTile, m - (int)row0), cin, w, 2 * c,
+                        Cols{c, c, n0}, bias, kv + row0 * 2 * c + n0, 2 * c,
+                        min(kTile, 2 * c - n0), stage);
 }
 
 // The loader of step (0), and with it what step (1) does.
@@ -274,30 +437,55 @@ enum Loader : int {
     kProjected = 2,    // K7: rows of k_g, v_g [B*N*K, C] and p_r
 };
 
-// Shared memory of a CTA, in floats: the parameters of its cw channels,
-// q [R, cw], pe0 [R*K, 3], the neighbour rows (K3), u [R*K, ldu] (K6: k
-// then v, u written over k) and t, w [R*K, cs] (K6: also the staging of a
-// projection tile).
-struct Layout {
-    int ldu, q, pe0, nbr, u, t, w, end;
-};
-
 __host__ __device__ inline int align4(int v) { return (v + 3) & ~3; }
+
+// Shared memory of a CTA, in floats: the parameters of its cw channels
+// (a0 b0 a1 b1 s0 t0 | w0 | w1 | c0 s1 t1 c1), q [R, cw], pe0 [R*K, 4]
+// (float4 rows), the neighbour rows (K3), kv [R*K, ldu] (u in columns
+// [0, cw), v + pe in [cw, 2cw); K6 first projects k and v there), then
+// t and w [R*K, cs] (K6: also the staging of its projection).
+struct Layout {
+    int ldu, w0, w1, vec, q, pe0, nbr, kv, t, w, end;
+};
 
 __host__ __device__ inline Layout make_layout(int loader, int kk, int cw, int cs,
                                               int rows) {
     Layout l;
     const int rk = rows * kk;
-    l.ldu = (loader == kGathered ? 2 * cw : cw) + 1;  // odd: no bank conflicts
-    l.q = align4(12 + 6 * cw + cw * cs + 4 * cs + cs * cs);
-    l.pe0 = l.q + rows * cw;
-    l.nbr = l.pe0 + 3 * rk;
-    l.u = align4(l.nbr + (loader == kFusedGather ? rk : 0));
-    l.t = align4(l.u + rk * l.ldu);
+    l.ldu = 2 * cw + 1;  // odd: no bank conflicts across neighbour rows
+    l.w0 = align4(12 + 6 * cw);
+    l.w1 = align4(l.w0 + cw * cs);
+    l.vec = l.w1 + cs * cs;
+    l.q = align4(l.vec + 4 * cs);
+    l.pe0 = align4(l.q + rows * cw);
+    l.nbr = l.pe0 + 4 * rk;
+    l.kv = align4(l.nbr + (loader == kFusedGather ? rk : 0));
+    l.t = align4(l.kv + rk * l.ldu);
     l.w = l.t + rk * cs;
     const int end = l.w + rk * cs, stage_end = l.t + kStageBytes / 4;
     l.end = loader == kGathered && stage_end > end ? stage_end : end;
     return l;
+}
+
+// The packed parameter buffer (all matrices [in, out] row-major): a0 [9]
+// b0 [3] a1 [3, C] b1 [C] s0 [C] t0 [C] w0 [C, cs] c0 [cs] s1 [cs] t1 [cs]
+// w1 [cs, cs] c1 [cs]. Element e of a CTA's shared parameters (channels
+// g0 .. g0 + cw) -> its index there, or -1 for alignment padding.
+__host__ __device__ inline int param_source(int e, const Layout& L, int c, int cw, int cs,
+                                   int g0) {
+    if (e < 12) return e;
+    if (e < 12 + 6 * cw) {  // rows of a1, then b1, s0, t0: six blocks of C
+        const int i = e - 12, blk = i / cw;
+        return 12 + blk * c + g0 + (i - blk * cw);
+    }
+    const int w0 = 12 + 6 * c, c0 = w0 + c * cs, w1 = c0 + 3 * cs;
+    if (e >= L.w0 && e < L.w0 + cw * cs) return w0 + g0 * cs + (e - L.w0);
+    if (e >= L.w1 && e < L.w1 + cs * cs) return w1 + (e - L.w1);
+    if (e >= L.vec && e < L.vec + 4 * cs) {  // c0, s1, t1, c1
+        const int i = e - L.vec, blk = i / cs;
+        return (blk < 3 ? c0 + blk * cs : w1 + cs * cs) + (i - blk * cs);
+    }
+    return -1;
 }
 
 template <typename T>
@@ -308,11 +496,53 @@ struct Args {
     const int* knn_idx;  // K3 [B, N, K]
     const void* q;       // [BN, C]: float for K6, else T
     const float* params;
-    const void* w;       // K6: Wk|Wv, float [Cin, 2C] or bf16 pieces [3, 2C, Cin]
+    const void* w;       // K6: Wk|Wv transposed, float [2C, Cin] or bf16 [3, 2C, Cin]
     const float* bias;   // K6: bk|bv [2C]
     void* out;           // [BN, C]: T for K3, else float
     int n, n_rows, kk, cin, c, cs, rows_per_cta, split;
 };
+
+// dst[rk * ncols + j] = epi(rk, j, sum_i a[rk * lda + i] w[i * ncols + j])
+// for rk < nrows, j < ncols: a thread takes one row of a and kJ columns
+// (one float4 of w a step when kJ = 4, w 16-byte aligned).
+template <int kJ, typename Epi>
+__device__ void row_products(const float* a, int lda, int depth, const float* w,
+                             int ncols, int nrows, Epi epi) {
+    const int groups = ncols / kJ;
+    const int tc = min(groups, 32), tr = kThreads / tc;
+    if ((int)threadIdx.x >= tc * tr) return;
+    for (int j0 = (threadIdx.x % tc) * kJ; j0 < ncols; j0 += tc * kJ) {
+        for (int rk = threadIdx.x / tc; rk < nrows; rk += tr) {
+            const float* ar = a + (size_t)rk * lda;
+            float acc[kJ] = {};
+#pragma unroll 4
+            for (int i = 0; i < depth; ++i) {
+                const float ai = ar[i];
+                if constexpr (kJ == 4) {
+                    const float4 w4 = *reinterpret_cast<const float4*>(w + i * ncols + j0);
+                    acc[0] = fmaf(ai, w4.x, acc[0]);
+                    acc[1] = fmaf(ai, w4.y, acc[1]);
+                    acc[2] = fmaf(ai, w4.z, acc[2]);
+                    acc[3] = fmaf(ai, w4.w, acc[3]);
+                } else {
+                    acc[0] = fmaf(ai, w[i * ncols + j0], acc[0]);
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < kJ; ++q) epi(rk, j0 + q, acc[q]);
+        }
+    }
+}
+
+template <typename Epi>
+__device__ void row_products(const float* a, int lda, int depth, const float* w,
+                             int ncols, int nrows, Epi epi) {
+    if (ncols % 4 == 0) {
+        row_products<4>(a, lda, depth, w, ncols, nrows, epi);
+    } else {
+        row_products<1>(a, lda, depth, w, ncols, nrows, epi);
+    }
+}
 
 template <int kLoader, typename T, int kPieces>
 __global__ void __launch_bounds__(kThreads) attention_kernel(const Args<T> a) {
@@ -332,118 +562,134 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Args<T> a) {
     float* s_b1 = s_a1 + 3 * cw;
     float* s_s0 = s_b1 + cw;
     float* s_t0 = s_s0 + cw;
-    float* s_w0 = s_t0 + cw;
-    float* s_c0 = s_w0 + cw * cs;
+    float* s_w0 = smem + L.w0;
+    float* s_w1 = smem + L.w1;
+    float* s_c0 = smem + L.vec;
     float* s_s1 = s_c0 + cs;
     float* s_t1 = s_s1 + cs;
-    float* s_w1 = s_t1 + cs;
-    float* s_c1 = s_w1 + cs * cs;
+    float* s_c1 = s_t1 + cs;
     float* s_q = smem + L.q;
     float* s_pe0 = smem + L.pe0;
     int* s_nbr = reinterpret_cast<int*>(smem + L.nbr);
-    float* s_u = smem + L.u;
+    float* s_kv = smem + L.kv;
     float* s_t = smem + L.t;
     float* s_w = smem + L.w;
+    const int ldu = L.ldu;
 
-    // (0) the parameters of this CTA's channels, q and the neighbour rows
-    const Params g = unpack(a.params, c, cs);
-    for (int e = threadIdx.x; e < 12; e += kThreads) smem[e] = e < 9 ? g.a0[e] : g.b0[e - 9];
-    for (int e = threadIdx.x; e < cw; e += kThreads) {
-        for (int o = 0; o < 3; ++o) s_a1[o * cw + e] = g.a1[o * c + g0 + e];
-        s_b1[e] = g.b1[g0 + e];
-        s_s0[e] = g.s0[g0 + e];
-        s_t0[e] = g.t0[g0 + e];
+    // (0) the parameters of this CTA's channels, q, and the neighbour rows
+    // with their relative positions: every load of a pass issued before its
+    // stores, so the CTA waits a few memory latencies, not one a loop
+    {
+        // the parameters come laid out as shared memory wants them, one slice
+        // a cluster rank (tgn_attention_param_map)
+        const float4* src = reinterpret_cast<const float4*>(a.params + (size_t)rank * L.q);
+        for (int e = threadIdx.x; e < L.q / 4; e += kThreads) {
+            reinterpret_cast<float4*>(smem)[e] = __ldg(src + e);
+        }
     }
-    for (int e = threadIdx.x; e < cw * cs; e += kThreads) s_w0[e] = g.w0[(size_t)g0 * cs + e];
-    for (int e = threadIdx.x; e < cs; e += kThreads) {
-        s_c0[e] = g.c0[e];
-        s_s1[e] = g.s1[e];
-        s_t1[e] = g.t1[e];
-        s_c1[e] = g.c1[e];
-    }
-    for (int e = threadIdx.x; e < cs * cs; e += kThreads) s_w1[e] = g.w1[e];
     const TQ* q = static_cast<const TQ*>(a.q);
+#pragma unroll 4
     for (int e = threadIdx.x; e < nr * cw; e += kThreads) {
         const int r = e / cw;
-        s_q[e] = ld(q, (row0 + r) * c + g0 + (e - r * cw));
+        s_q[e] = ldg(q, (row0 + r) * c + g0 + (e - r * cw));
     }
-    if constexpr (kLoader == kFusedGather) {
-        for (int e = threadIdx.x; e < nrk; e += kThreads) {
-            const size_t row = row0 + e / kk;
-            s_nbr[e] = (int)(row / a.n) * a.n + a.knn_idx[row0 * kk + e];
+    for (int rk = threadIdx.x; rk < nrk; rk += kThreads) {
+        float r0, r1, r2;
+        if constexpr (kLoader == kFusedGather) {
+            const size_t row = row0 + rk / kk;
+            const int nb = (int)(row / a.n) * a.n + __ldg(a.knn_idx + row0 * kk + rk);
+            s_nbr[rk] = nb;
+            const float* p = static_cast<const float*>(a.p);
+            r0 = round_to<T>(__ldg(p + (size_t)nb * 3) - __ldg(p + row * 3));
+            r1 = round_to<T>(__ldg(p + (size_t)nb * 3 + 1) - __ldg(p + row * 3 + 1));
+            r2 = round_to<T>(__ldg(p + (size_t)nb * 3 + 2) - __ldg(p + row * 3 + 2));
+        } else {
+            const T* pr = static_cast<const T*>(a.p) + (row0 * kk + rk) * 3;
+            r0 = ldg(pr, 0);
+            r1 = ldg(pr, 1);
+            r2 = ldg(pr, 2);
         }
+        s_pe0[rk * 4] = r0;
+        s_pe0[rk * 4 + 1] = r1;
+        s_pe0[rk * 4 + 2] = r2;
+        s_pe0[rk * 4 + 3] = __int_as_float(rk / kk);  // the neighbour row's query row
     }
     __syncthreads();
 
-    // (2) first half: pe0 = relu(p_r A0 + b0) [R*K, 3]
-    for (int e = threadIdx.x; e < nrk * 3; e += kThreads) {
-        const int rk = e / 3, o = e - rk * 3;
-        float r0, r1, r2;
-        if constexpr (kLoader == kFusedGather) {
-            const float* p = static_cast<const float*>(a.p);
-            const float* pj = p + (size_t)s_nbr[rk] * 3;
-            const float* pi = p + (row0 + rk / kk) * 3;
-            r0 = round_to<T>(pj[0] - pi[0]);
-            r1 = round_to<T>(pj[1] - pi[1]);
-            r2 = round_to<T>(pj[2] - pi[2]);
-        } else {
-            const T* pr = static_cast<const T*>(a.p) + (row0 * kk + rk) * 3;
-            r0 = ld(pr, 0);
-            r1 = ld(pr, 1);
-            r2 = ld(pr, 2);
+    // (2) first half: pe0 = relu(p_r A0 + b0) [R*K, 3 (+1)], over p_r
+    for (int rk = threadIdx.x; rk < nrk; rk += kThreads) {
+        float* pe = s_pe0 + rk * 4;
+        const float r0 = pe[0], r1 = pe[1], r2 = pe[2];
+#pragma unroll
+        for (int o = 0; o < 3; ++o) {
+            pe[o] = fmaxf(s_b0[o] + r0 * s_a0[o] + r1 * s_a0[3 + o] + r2 * s_a0[6 + o],
+                          0.f);
         }
-        s_pe0[e] = fmaxf(s_b0[o] + r0 * s_a0[o] + r1 * s_a0[3 + o] + r2 * s_a0[6 + o], 0.f);
     }
 
-    // (1) K6: k|v of this CTA's channels for its R*K gathered rows, in tiles
+    // (1) K6: k|v of this CTA's channels for its R*K gathered rows
     if constexpr (kLoader == kGathered) {
-        const T* xg = static_cast<const T*>(a.rows) + row0 * kk * (size_t)a.cin;
-        unsigned char* stage = reinterpret_cast<unsigned char*>(s_t);
-        for (int m0 = 0; m0 < nrk; m0 += kTile) {
-            for (int n0 = 0; n0 < 2 * cw; n0 += kTile) {
-                project_tile<T, kPieces>(xg + (size_t)m0 * a.cin, min(kTile, nrk - m0),
-                                         a.cin, a.w, 2 * c, Cols{c, cw, g0}, a.bias,
-                                         s_u + (size_t)m0 * L.ldu, L.ldu, n0, 2 * cw, stage);
+        project<T, kPieces>(static_cast<const T*>(a.rows) + row0 * kk * (size_t)a.cin, nrk,
+                            a.cin, a.w, 2 * c, Cols{c, cw, g0}, a.bias, s_kv, ldu, 2 * cw,
+                            reinterpret_cast<unsigned char*>(s_t));
+    }
+    __syncthreads();
+
+    // (2) second half + (3a): u = relu(s0 (k - q + pe) + t0) and v + pe, a
+    // thread per channel walking the neighbour rows, 4 rows' loads at once
+    {
+        constexpr int kB = 4;
+        const int tc = min(cw, 32), tr = kThreads / tc;
+        const float* kv = static_cast<const float*>(a.rows);  // K3
+        if ((int)threadIdx.x < tc * tr) {
+            for (int ch = threadIdx.x % tc; ch < cw; ch += tc) {
+                const float a10 = s_a1[ch], a11 = s_a1[cw + ch], a12 = s_a1[2 * cw + ch];
+                const float b1 = s_b1[ch], s0 = s_s0[ch], t0 = s_t0[ch];
+                for (int rk0 = threadIdx.x / tc; rk0 < nrk; rk0 += kB * tr) {
+                    float kval[kB], vval[kB];
+#pragma unroll
+                    for (int u = 0; u < kB; ++u) {
+                        const int rk = min(rk0 + u * tr, nrk - 1);
+                        if constexpr (kLoader == kFusedGather) {
+                            const size_t base = (size_t)s_nbr[rk] * 2 * c + g0 + ch;
+                            kval[u] = ldg(kv, base);
+                            vval[u] = ldg(kv, base + c);
+                        } else if constexpr (kLoader == kGathered) {
+                            kval[u] = s_kv[(size_t)rk * ldu + ch];
+                            vval[u] = s_kv[(size_t)rk * ldu + cw + ch];
+                        } else {
+                            const size_t base = (row0 * kk + rk) * (size_t)c + g0 + ch;
+                            kval[u] = ldg(static_cast<const T*>(a.rows), base);
+                            vval[u] = ldg(a.v_rows, base);
+                        }
+                    }
+#pragma unroll
+                    for (int u = 0; u < kB; ++u) {
+                        const int rk = rk0 + u * tr;
+                        if (rk >= nrk) break;
+                        float* row = s_kv + (size_t)rk * ldu;
+                        const float4 p0 = *reinterpret_cast<const float4*>(s_pe0 + rk * 4);
+                        const float pe = b1 + p0.x * a10 + p0.y * a11 + p0.z * a12;
+                        const float qv = s_q[__float_as_int(p0.w) * cw + ch];
+                        row[ch] = fmaxf((kval[u] - qv + pe) * s0 + t0, 0.f);
+                        row[cw + ch] = vval[u] + pe;
+                    }
+                }
             }
         }
     }
     __syncthreads();
 
-    // (2) second half + (3a): u = relu(s0 (k - q + pe) + t0) [R*K, cw]
-    const float* kv = static_cast<const float*>(a.rows);  // K3
-    for (int e = threadIdx.x; e < nrk * cw; e += kThreads) {
-        const int rk = e / cw, ch = e - rk * cw;
-        float kval;
-        if constexpr (kLoader == kFusedGather) {
-            kval = kv[(size_t)s_nbr[rk] * 2 * c + g0 + ch];
-        } else if constexpr (kLoader == kGathered) {
-            kval = s_u[(size_t)rk * L.ldu + ch];
-        } else {
-            kval = ld(static_cast<const T*>(a.rows), (row0 * kk + rk) * (size_t)c + g0 + ch);
-        }
-        const float* pe0 = s_pe0 + rk * 3;
-        const float pe = s_b1[ch] + pe0[0] * s_a1[ch] + pe0[1] * s_a1[cw + ch]
-                         + pe0[2] * s_a1[2 * cw + ch];
-        s_u[(size_t)rk * L.ldu + ch] =
-            fmaxf((kval - s_q[(rk / kk) * cw + ch] + pe) * s_s0[ch] + s_t0[ch], 0.f);
-    }
-    __syncthreads();
-
     // (3b) t = relu(s1 (u W0 + c0) + t1) [R*K, cs]; with a split each CTA
     // sums its cw channels into w, and the parts are added in rank order
-    for (int e = threadIdx.x; e < nrk * cs; e += kThreads) {
-        const int rk = e / cs, j = e - rk * cs;
-        const float* u = s_u + (size_t)rk * L.ldu;
-        float acc = 0.f;
-#pragma unroll 4
-        for (int i = 0; i < cw; ++i) acc = fmaf(u[i], s_w0[i * cs + j], acc);
-        if (split == 1) {
-            s_t[e] = fmaxf((acc + s_c0[j]) * s_s1[j] + s_t1[j], 0.f);
-        } else {
-            s_w[e] = acc;
-        }
-    }
-    if (split > 1) {
+    if (split == 1) {
+        row_products(s_kv, ldu, cw, s_w0, cs, nrk, [&](int rk, int j, float acc) {
+            s_t[rk * cs + j] = fmaxf((acc + s_c0[j]) * s_s1[j] + s_t1[j], 0.f);
+        });
+        __syncthreads();
+    } else {
+        row_products(s_kv, ldu, cw, s_w0, cs, nrk,
+                     [&](int rk, int j, float acc) { s_w[rk * cs + j] = acc; });
         cg::cluster_group cluster = cg::this_cluster();
         cluster.sync();
         for (int e = threadIdx.x; e < nrk * cs; e += kThreads) {
@@ -453,18 +699,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Args<T> a) {
             s_t[e] = fmaxf((acc + s_c0[j]) * s_s1[j] + s_t1[j], 0.f);
         }
         cluster.sync();  // no CTA writes its w while a partner may read it
-    } else {
-        __syncthreads();
     }
 
     // (3c) w = t W1 + c1 [R*K, cs]
-    for (int e = threadIdx.x; e < nrk * cs; e += kThreads) {
-        const int rk = e / cs, j = e - rk * cs;
-        const float* t = s_t + rk * cs;
-        float acc = s_c1[j];
-        for (int i = 0; i < cs; ++i) acc = fmaf(t[i], s_w1[i * cs + j], acc);
-        s_w[e] = acc;
-    }
+    row_products(s_t, cs, cs, s_w1, cs, nrk, [&](int rk, int j, float acc) {
+        s_w[rk * cs + j] = acc + s_c1[j];
+    });
     __syncthreads();
 
     // (4) softmax over K: one warp per (row, group), lanes over neighbours
@@ -487,28 +727,23 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Args<T> a) {
     }
     __syncthreads();
 
-    // (5) out = sum_k (v + pe) w, v read again (K3 from kv in L2)
-    TO* out = static_cast<TO*>(a.out);
-    for (int e = threadIdx.x; e < nr * cw; e += kThreads) {
-        const int r = e / cw, ch = e - r * cw, gc = g0 + ch, j = gc % cs;
-        const float b1 = s_b1[ch], a10 = s_a1[ch], a11 = s_a1[cw + ch],
-                    a12 = s_a1[2 * cw + ch];
-        float acc = 0.f;
-        for (int k = 0; k < kk; ++k) {
-            const int rk = r * kk + k;
-            float v;
-            if constexpr (kLoader == kFusedGather) {
-                v = kv[(size_t)s_nbr[rk] * 2 * c + c + gc];
-            } else if constexpr (kLoader == kGathered) {
-                v = s_u[(size_t)rk * L.ldu + cw + ch];
-            } else {
-                v = ld(a.v_rows, (row0 * kk + rk) * (size_t)c + gc);
+    // (5) out = sum_k (v + pe) w, a thread per channel walking the rows
+    {
+        TO* out = static_cast<TO*>(a.out);
+        const int tc = min(cw, 32), tr = kThreads / tc;
+        if ((int)threadIdx.x < tc * tr) {
+            for (int ch = threadIdx.x % tc; ch < cw; ch += tc) {
+                const int j = (g0 + ch) % cs;
+                for (int r = threadIdx.x / tc; r < nr; r += tr) {
+                    const float* vpe = s_kv + (size_t)r * kk * ldu + cw + ch;
+                    const float* w = s_w + r * kk * cs + j;
+                    float acc = 0.f;
+#pragma unroll 4
+                    for (int k = 0; k < kk; ++k) acc = fmaf(vpe[k * ldu], w[k * cs], acc);
+                    st(out, (row0 + r) * c + g0 + ch, acc);
+                }
             }
-            const float* pe0 = s_pe0 + rk * 3;
-            const float pe = b1 + pe0[0] * a10 + pe0[1] * a11 + pe0[2] * a12;
-            acc = fmaf(v + pe, s_w[rk * cs + j], acc);
         }
-        st(out, (row0 + r) * c + gc, acc);
     }
 }
 
@@ -522,11 +757,9 @@ Plan plan(int loader, size_t n_rows, int kk, int c, int cs) {
     Plan p;
     p.split = (c >= 256 && c % 128 == 0) ? std::min(4, c / 128) : 1;
     const int cw = c / p.split;
-    const int ldu = (loader == kGathered ? 2 * cw : cw) + 1;
-    // floats of u (K6: k|v) a CTA holds; then halve R while the launch
-    // would have fewer than two CTAs an SM (132 SMs)
-    const int budget = loader == kGathered ? 18432 : 8192;
-    p.rows = std::max(1, std::min(8, budget / std::max(1, kk * ldu)));
+    // about 9216 floats (36 KB) of k|v rows a CTA, at most 8 rows; then
+    // halve R while the launch would have fewer than two CTAs an SM (132)
+    p.rows = std::max(1, std::min(8, 9216 / std::max(1, kk * (2 * cw + 1))));
     while (p.rows > 1 && (n_rows + p.rows - 1) / p.rows * p.split < 264) p.rows /= 2;
     p.smem = sizeof(float) * (size_t)make_layout(loader, kk, cw, cs, p.rows).end;
     return p;
@@ -552,14 +785,32 @@ extern "C" size_t tgn_attention_smem_bytes(int loader, int n_rows, int kk, int c
     return plan(loader, (size_t)std::max(n_rows, 1), kk, c, cs).smem;
 }
 
-// K3 step (1). x [M, Cin] (bf16 != 0: bfloat16, w the bf16 [2C, Cin] of
-// Wk|Wv transposed; else float32, w [Cin, 2C]), bias [2C] float32; kv
-// [M, 2C] float32. Returns cudaGetLastError().
+// The parameter layout the attention kernels read: for each of the S CTAs
+// of a cluster (S = 1 below C = 256), its slice in the order of its shared
+// memory. Writes into idx (when not null) the index in the packed buffer
+// (a0 .. c1 as above) of each element, -1 for padding; returns the count.
+extern "C" int tgn_attention_param_map(int c, int cs, int* idx) {
+    const int split = plan(kFusedGather, 1, 1, c, cs).split, cw = c / split;
+    const Layout L = make_layout(kFusedGather, 1, cw, cs, 1);
+    if (idx != nullptr) {
+        for (int r = 0; r < split; ++r) {
+            for (int e = 0; e < L.q; ++e) {
+                idx[r * L.q + e] = param_source(e, L, c, cw, cs, r * cw);
+            }
+        }
+    }
+    return split * L.q;
+}
+
+// K3 step (1). x [M, Cin], w Wk|Wv transposed [P, 2C, Cin] and bias [2C]
+// float32 (bf16 != 0: x bfloat16 and w the bf16-rounded weights, P = 1;
+// else both float32); kv [M, 2C] float32. Returns cudaGetLastError().
 extern "C" int tgn_project_kv(const void* x, const void* w, const float* bias, int m,
                               int cin, int c, float* kv, int bf16, cudaStream_t stream) {
     if (m < 1) return 0;
     if (cin < 1 || c < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((m + kTile - 1) / kTile), (unsigned)((2 * c + kTile - 1) / kTile));
+    const dim3 grid((unsigned)((m + kTile - 1) / kTile),
+                    (unsigned)((2 * c + kTile - 1) / kTile));
     if (bf16) {
         project_kv_kernel<__nv_bfloat16, 1><<<grid, kThreads, 0, stream>>>(
             static_cast<const __nv_bfloat16*>(x), w, bias, m, cin, c, kv);
@@ -572,8 +823,8 @@ extern "C" int tgn_project_kv(const void* x, const void* w, const float* bias, i
 
 // K3 steps (0), (2)-(5). kv [B*N, 2C] float32 from tgn_project_kv, p
 // [B, N, 3] float32, knn_idx [B, N, K] int32 (within-cloud), q [B*N, C]
-// (bf16 != 0: bfloat16, else float32), params packed as above; out
-// [B*N, C] in q's dtype. Returns the launch's CUDA status.
+// (bf16 != 0: bfloat16, else float32), params laid out by
+// tgn_attention_param_map; out [B*N, C] in q's dtype. Returns the launch's CUDA status.
 extern "C" int tgn_attention(const float* kv, const float* p, const int* knn_idx,
                              const void* q, const float* params, int b, int n, int kk,
                              int c, int cs, void* out, int bf16, cudaStream_t stream) {
@@ -591,8 +842,9 @@ extern "C" int tgn_attention(const float* kv, const float* p, const int* knn_idx
 
 // K6. q [BN, C] float32, x_g [BN*K, Cin] and p_r [BN*K, 3] (bf16 != 0:
 // bfloat16 and w the three bf16 pieces [3, 2C, Cin] of Wk|Wv transposed;
-// else float32 and w [Cin, 2C]), bias = bk|bv [2C] float32, params packed
-// as above; out [BN, C] float32. Returns the launch's CUDA status.
+// else float32 and w Wk|Wv transposed [2C, Cin]), bias = bk|bv [2C]
+// float32, params laid out by tgn_attention_param_map; out [BN, C]
+// float32. Returns the launch's CUDA status.
 extern "C" int tgn_attention_gathered(const float* q, const void* x_g, const void* p_r,
                                       const float* params, const void* w,
                                       const float* bias, int bn, int kk, int cin, int c,
@@ -603,13 +855,14 @@ extern "C" int tgn_attention_gathered(const float* q, const void* x_g, const voi
             Args<T>{x_g, nullptr, p_r, nullptr, q, params, w, bias, out, bn, bn, kk, cin,
                     c, cs, 0, 0}, stream);
     }
-    return launch<kGathered, float, 0>(
+    return launch<kGathered, float, 3>(
         Args<float>{x_g, nullptr, p_r, nullptr, q, params, w, bias, out, bn, bn, kk, cin,
                     c, cs, 0, 0}, stream);
 }
 
 // K7. q [BN, C], k_g and v_g [BN*K, C], p_r [BN*K, 3] (bf16 != 0: all
-// bfloat16, else float32), params packed as above; out [BN, C] float32.
+// bfloat16, else float32), params laid out by tgn_attention_param_map;
+// out [BN, C] float32.
 // Returns the launch's CUDA status.
 extern "C" int tgn_attention_projected(const void* q, const void* k_g, const void* v_g,
                                        const void* p_r, const float* params, int bn,

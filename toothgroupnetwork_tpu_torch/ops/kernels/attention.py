@@ -32,6 +32,8 @@ folded dict (``PointTransformerLayer.kernel_params``) packs once per load.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -115,15 +117,6 @@ def fold_attention_params(layer, dtype: torch.dtype = torch.float32,
     }
 
 
-def _kv_in(params: dict, dtype: torch.dtype) -> dict:
-    """K3's contract: with bf16 rows the k/v weights are rounded to bf16
-    first (the bf16 kron weights of ``fused_vector_attention_packed_x``)."""
-    if dtype == torch.float32:
-        return params
-    return {**params, "wk": _round(params["wk"], dtype),
-            "wv": _round(params["wv"], dtype)}
-
-
 def pack_params(params: dict) -> torch.Tensor:
     """One contiguous f32 buffer of the parameters after the k/v projection,
     in the order csrc/attention.cu unpacks."""
@@ -144,26 +137,35 @@ def kernel_layout(params: dict, loader: int, dtype: torch.dtype,
                   device: torch.device) -> dict:
     """The tensors a kernel reads for ``params`` (from
     :func:`fold_attention_params`), rows of ``dtype``, on ``device``: the
-    packed parameters after the projection and, for K3 and K6, bk|bv
-    ``[2C]`` and Wk|Wv — float32 ``[Cin, 2C]`` for float32 rows; for bf16
-    rows transposed, ``[P, 2C, Cin]`` in bf16: K3 the weights rounded to
-    bf16 (P = 1, its contract), K6 the float32 weights in three pieces.
-    Built once and kept in ``params[LAYOUT_KEY]``; a dict whose tensors are
-    changed in place must be folded again."""
+    parameters after the projection, laid out per CTA as its shared memory
+    holds them (``tgn_attention_param_map``), and for K3 and K6 bk|bv
+    ``[2C]`` and Wk|Wv transposed, ``[2C, Cin]`` float32 for float32 rows,
+    ``[P, 2C, Cin]`` bf16 for bf16 rows: K3 the weights rounded to bf16
+    (P = 1, its contract), K6 the float32 weights in three pieces. Built once
+    and kept in ``params[LAYOUT_KEY]``; a dict whose tensors are changed in
+    place must be folded again."""
     cache = params.setdefault(LAYOUT_KEY, {})
     key = (loader, dtype, device)
     if key not in cache:
+        lib = build.library()
+        c, cs = params["b1"].numel(), params["w1"].shape[-1]
+        n = lib.tgn_attention_param_map(c, cs, None)
+        src = (ctypes.c_int * n)()
+        lib.tgn_attention_param_map(c, cs, src)
         with torch.no_grad():
-            lay = {"params": pack_params(params).to(device)}
+            packed = pack_params(params).to(device)
+            src = torch.tensor(list(src), dtype=torch.long, device=device)
+            src[src < 0] = packed.numel()   # padding reads the appended zero
+            lay = {"params": torch.cat([packed, packed.new_zeros(1)])[src].contiguous()}
             if loader != _K7:
                 lay["bias"] = torch.cat([params["bk"], params["bv"]]).float().to(device)
-                w = torch.cat([params["wk"], params["wv"]], dim=1).float().to(device)
+                wt = torch.cat([params["wk"], params["wv"]], dim=1).float().to(device).t()
                 if dtype == torch.float32:
-                    lay["w"] = w.contiguous()
+                    lay["w"] = wt.contiguous()
                 elif loader == _K3:
-                    lay["w"] = w.t().to(dtype).contiguous()[None]
+                    lay["w"] = wt.to(dtype).contiguous()[None]
                 else:
-                    lay["w"] = _split_bf16(w.t().contiguous()).contiguous()
+                    lay["w"] = _split_bf16(wt.contiguous()).contiguous()
         cache[key] = lay
     return cache[key]
 
@@ -181,8 +183,9 @@ def project_kv(x: torch.Tensor, params: dict) -> torch.Tensor:
     (float32 or bfloat16), params from :func:`fold_attention_params` ->
     kv ``[M, 2C]`` float32, ``x [Wk | Wv] + [bk | bv]`` with Wk/Wv rounded
     to x's dtype (K3's contract). A tile product: bf16 rows on the tensor
-    cores (exact products, float32 sums), float32 rows on FMA units (no
-    TF32). CPU tensors take :func:`project_kv_reference`."""
+    cores (exact products, float32 sums), float32 rows on the FMA units
+    (float32 sums in order; no TF32). CPU tensors take
+    :func:`project_kv_reference`."""
     if on_cpu(x):
         return project_kv_reference(x, params)
     dev = x.device
@@ -362,10 +365,12 @@ def fused_vector_attention_packed_reference(q, k_g, v_g, p_r, params, *,
 
 def project_kv_reference(x, params) -> torch.Tensor:
     """Plain twin of :func:`project_kv`: ``x [Wk | Wv] + [bk | bv]`` in
-    float32, Wk/Wv rounded to x's dtype first."""
-    kv = _kv_in(params, x.dtype)
-    return (x.float() @ torch.cat([kv["wk"], kv["wv"]], dim=1)
-            + torch.cat([kv["bk"], kv["bv"]]))
+    float32, Wk/Wv rounded to x's dtype first (K3's contract: the bf16 kron
+    weights of ``fused_vector_attention_packed_x``)."""
+    w = torch.cat([params["wk"], params["wv"]], dim=1)
+    if x.dtype != torch.float32:
+        w = _round(w, x.dtype)
+    return x.float() @ w + torch.cat([params["bk"], params["bv"]])
 
 
 def gathered_kv_attention_reference(kv, p, knn_idx, q, params,

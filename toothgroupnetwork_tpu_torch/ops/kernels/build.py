@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "tgn_fps": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
@@ -37,6 +38,7 @@ _SIGNATURES = {
     "tgn_attention_projected": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
                                 _I),
     "tgn_attention_smem_bytes": ([_I, _I, _I, _I, _I], _Z),
+    "tgn_attention_param_map": ([_I, _I, _IP], _I),
     "tgn_cell_select_x": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
     "tgn_gather_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
     "tgn_cell_select_p": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
