@@ -109,7 +109,8 @@ CARD = {"card": None}     # the nvidia-smi line, beside every number logged
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
-# K3's launches by shape in one call of each configuration (phase_slice)
+# K3's launches a scan by shape in each configuration's main-path run
+# (phase_slice), from its wrapper's count
 SCAN_K3_SHAPES: dict = {}
 
 
@@ -748,6 +749,8 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
     launch and none of ``unused``. Returns the launch counts and the
     pipeline."""
     from toothgroupnetwork_tpu_torch.cli import infer
+    from toothgroupnetwork_tpu_torch.ops.kernels.attention import (
+        fused_vector_attention_packed_x as k3)
     from toothgroupnetwork_tpu_torch.pipelines import ScanSegmentation
 
     argv = ["--input_dir_path", str(scans[0].parent), "--save_path", str(out_dir),
@@ -757,14 +760,26 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
         argv += ["--config_path", str(config)]
     for k in (*kernels, *unused):
         k.launches = 0
+    k3.launches_by_shape.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipeline = infer.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in (*kernels, *unused)}
+    # K3's launches by shape, counted by its wrapper in the same run
+    SCAN_K3_SHAPES[what] = {
+        f"B{b}/N{n}/K{kk}/C{c}" + (" bf16" if dtype == torch.bfloat16 else ""):
+        count / len(scans) for (b, n, kk, c, dtype), count in k3.launches_by_shape.items()}
     log(what, scans=len(scans), wall_s=wall, scans_per_s=len(scans) / wall,
         launches=launches, last_scan_timings_s=dict(pipeline.timings))
+    if sum(k3.launches_by_shape.values()) != launches[k3.__name__]:
+        raise AssertionError(f"K3 by shape {k3.launches_by_shape} does not sum to "
+                             f"its count {launches[k3.__name__]} ({what})")
+    log("k3_shapes", what=what, launches_per_scan=SCAN_K3_SHAPES[what],
+        not_in_phase3=sorted(set(SCAN_K3_SHAPES[what]) - {
+            f"B{b}/N{n}/K{k}/C{c}{t}" for b, n, k, c in ATTENTION_SHAPES
+            for t in ("", " bf16")}))
     for k in kernels:
         if launches[k.__name__] <= 0:
             raise AssertionError(f"kernel {k.__name__} was not launched ({what})")
@@ -797,35 +812,7 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
     log("repeat", what=what, scan=scans[0].name, identical=True, wall_s=again_s,
         timings_s=dict(pipeline.timings))
     profile_call(pipeline, scans[0], what)
-    SCAN_K3_SHAPES[what] = k3_shapes_of_call(pipeline, scans[0])
-    log("k3_shapes", what=what, launches_by_shape=SCAN_K3_SHAPES[what],
-        not_in_phase3=sorted(set(SCAN_K3_SHAPES[what]) - {
-            f"B{b}/N{n}/K{k}/C{c}{t}" for b, n, k, c in ATTENTION_SHAPES
-            for t in ("", " bf16")}))
     return launches, pipeline
-
-
-def k3_shapes_of_call(pipeline, scan: Path) -> dict:
-    """K3's launches by shape (B, N, K, C, dtype) in one call of
-    ``pipeline``: the backbone's name for K3 wrapped for that call."""
-    from toothgroupnetwork_tpu_torch.models.point_transformer import backbone
-
-    seen: dict = {}
-    k3 = backbone.fused_vector_attention_packed_x
-
-    def counted(x, p, knn_idx, q, params):
-        b, n, kk = knn_idx.shape
-        tag = (f"B{b}/N{n}/K{kk}/C{q.shape[1]}"
-               + (" bf16" if x.dtype == torch.bfloat16 else ""))
-        seen[tag] = seen.get(tag, 0) + 1
-        return k3(x, p, knn_idx, q, params)
-
-    backbone.fused_vector_attention_packed_x = counted
-    try:
-        pipeline(str(scan))
-    finally:
-        backbone.fused_vector_attention_packed_x = k3
-    return seen
 
 
 def phase_ab(pipes: dict, scan: Path, rounds: int = 2) -> None:

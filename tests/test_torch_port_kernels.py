@@ -272,6 +272,55 @@ class TestKernelsOnCard:
                 attention.project_kv.launches) == (counts[0] + 1, counts[1] + 1)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_attention_sees_edited_params(self, cuda_device, gen, dtype):
+        """A parameter dict edited after a call (a weight scaled in place, a
+        bias and a matrix replaced) reaches the next call of K3, K6 and K7:
+        each within its tolerance of its twin on the edited dict."""
+        b, n, kk, c = 1, 200, 16, 32
+        port = PointTransformerLayer(c, device=cuda_device)
+        randomize_(port, torch.Generator().manual_seed(0))
+        p = _cloud(gen, b, n, 3, device=cuda_device) * 0.2
+        x = (_cloud(gen, b, n, c, device=cuda_device) * 0.2).to(dtype)
+        idx = _knn_idx(gen, b, n, kk, cuda_device)
+        x_g = x.reshape(n, c)[idx.reshape(-1).long()].contiguous()
+        p_r = (p.reshape(n, 3)[idx.reshape(-1).long()]
+               - p.reshape(n, 1, 3).expand(n, kk, 3).reshape(-1, 3)).to(dtype)
+        k_g, v_g = (_cloud(gen, n * kk, c, device=cuda_device).to(dtype)
+                    for _ in range(2))
+        with torch.no_grad():
+            params = attention.fold_attention_params(port, dtype)
+            q = port.linear_q(x.float()).reshape(-1, c).to(dtype).contiguous()
+
+            def check():
+                got = attention.fused_vector_attention_packed_x(x, p, idx, q, params)
+                ref = attention.fused_vector_attention_packed_x_reference(
+                    x, p, idx, q, params)
+                if dtype == torch.bfloat16:
+                    assert _within_one_bf16_ulp(got, ref)
+                else:
+                    assert (got - ref).abs().max().item() <= 1e-4
+                for got, ref in (
+                        (attention.fused_vector_attention(q.float(), x_g, p_r, params,
+                                                          k=kk),
+                         attention.fused_vector_attention_reference(
+                             q.float(), x_g, p_r, params, k=kk)),
+                        (attention.fused_vector_attention_packed(q, k_g, v_g, p_r,
+                                                                 params, k=kk),
+                         attention.fused_vector_attention_packed_reference(
+                             q, k_g, v_g, p_r, params, k=kk))):
+                    assert (got - ref).abs().max().item() <= 1e-4
+                return got
+
+            before = check()
+            params["wk"].mul_(3.0)
+            params["wv"].mul_(-1.0)
+            check()
+            params["bv"] = params["bv"] + 0.5
+            check()
+            params["w0"] = params["w0"] * 2.0
+            assert not torch.equal(check(), before)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 93, 24, 512),
                                           (2, 64, 36, 512), (2, 100, 13, 16)])
     def test_pre_projected_attention(self, cuda_device, gen, b, n, kk, c, dtype):

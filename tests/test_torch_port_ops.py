@@ -304,6 +304,49 @@ class TestAttention:
             port.load_state_dict(other.state_dict())
             assert torch.equal(port(p, x, idx), fresh_output())
 
+    def test_kernel_layout_follows_the_dict(self, rng):
+        """The kernel layout a wrapper keeps in a parameter dict is made
+        once, and made anew after a tensor of the dict is changed in place
+        or replaced; a dict of inference tensors keeps none."""
+        _, _, port, *_ = _attention_setup(rng, 1, 40, 8, 16)
+        with torch.no_grad():
+            params = attention.fold_attention_params(port)
+        made = []
+
+        def layout(d=params):
+            return attention.cached_layout(
+                d, "key", lambda: made.append(d["wk"] + d["bv"][:16]) or made[-1])
+
+        with torch.no_grad():
+            first = layout()
+            assert layout() is first and len(made) == 1
+            params["wk"].mul_(2.0)
+            assert torch.equal(layout(), params["wk"] + params["bv"][:16])
+            params["bv"] = params["bv"] + 1.0
+            assert torch.equal(layout(), params["wk"] + params["bv"][:16])
+            assert layout() is made[-1] and len(made) == 3
+        with torch.inference_mode():
+            frozen = attention.fold_attention_params(port)
+            layout(frozen)
+            layout(frozen)
+        assert len(made) == 5
+
+    def test_layer_keeps_its_layout_under_inference_mode(self, rng):
+        """An inference-mode pipeline (``TgnInferencePipeline.__call__``)
+        gets the same folded dict from a layer call after call, with tensors
+        that keep version counters, so a kernel layout kept in it is made
+        once."""
+        _, _, port, pp, xx, kidx = _attention_setup(rng, 1, 40, 8, 16)
+        made = []
+        for _ in range(3):
+            with torch.inference_mode():
+                port(*(_t(np.asarray(a)) for a in (pp, xx, kidx)))
+                folded = port.kernel_params()
+                attention.cached_layout(folded, "key", lambda: made.append(1))
+        assert not any(t.is_inference() for k, t in folded.items()
+                       if k != attention.LAYOUT_KEY)
+        assert port.kernel_params() is folded and len(made) == 1
+
     def test_fold_matches_jax_fold(self, rng):
         _, vs, port, *_ = _attention_setup(rng, 1, 40, 8, 16)
         ref = jax_fold(vs)

@@ -1,7 +1,6 @@
 """In-turn comparison of two checkouts of the PyTorch port on one card.
 
     python3 tools/torch_scan_ab.py --other DIR [--config JSON] [--steady 3]
-        [--min-share 0.999]
 
 Writes random full-width fps + bdl weights (``save_npz``) and three synthetic
 100489-vertex scans, then runs the default inference pipeline of this
@@ -12,12 +11,17 @@ JSON line per process and a summary: whether every process gave the same
 labels and instances on every scan, the share of vertices whose label and
 instance (and whose label alone) equal those of the first process (run 0,
 "other") in each later process, and the median wall and per-phase seconds of the steady calls of
-each checkout, beside the card's nvidia-smi name and power limit. Each
-process also times the fused attention K3 (CUDA events, mean of 5 calls
-after one) at every chip_smoke ATTENTION_SHAPES entry in float32 and
-bfloat16, and K1 and K2 (mean of 3 after one) at three main-path shapes
-each, on the same random inputs. Needs one CUDA card; exits non-zero
-without one, and with 2 when a share falls below --min-share.
+each checkout, beside the card's nvidia-smi name and power limit. When the
+config computes in bfloat16, each process also serves the three scans in
+float32 (the same config, dtype float32), and the summary gives each
+process's share of vertices equal to its own float32 outputs: how far
+each checkout's bfloat16 lies from float32. Each process also times the
+fused attention K3 (CUDA events, mean of 5 calls after one) at every
+chip_smoke ATTENTION_SHAPES entry in float32 and bfloat16, and K1 and K2
+(mean of 3 after one) at three main-path shapes each, on the same random
+inputs. Needs one CUDA card; exits non-zero without one, and with 2 when a
+float32 run's share falls below MIN_SHARE (bfloat16 shares are printed,
+not gated: a sum in another order may round a bf16 value the other way).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
+# least share of vertices equal to run 0's in a float32 configuration
+MIN_SHARE = 0.999
 
 # one process: serve the scans once, then the first scan again, timed
 RUNNER = r"""
@@ -53,6 +59,12 @@ for _ in range(int(steady)):
     pipe(scans[0])
     torch.cuda.synchronize()
     res["calls"].append({"wall_s": time.perf_counter() - t0, **pipe.timings})
+if config and config.get("model_parameter", {}).get("dtype") == "bfloat16":
+    f32 = json.loads(json.dumps(config))
+    f32["model_parameter"]["dtype"] = "float32"
+    pipe = TgnInferencePipeline(fps, bdl, f32, device="cuda")
+    res["outputs_f32"] = [[r["sem"].tolist(), r["ins"].tolist()]
+                          for r in map(pipe, scans)]
 
 from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
     PointTransformerLayer)
@@ -104,8 +116,6 @@ def main() -> int:
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--config", default="", help="model_parameter config as JSON")
     ap.add_argument("--steady", type=int, default=3)
-    ap.add_argument("--min-share", type=float, default=0.999,
-                    help="least share of vertices equal to run 0's")
     args = ap.parse_args()
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import torch
@@ -148,10 +158,20 @@ def main() -> int:
         calls = [c for n, r in runs if n == name for c in r["calls"]]
         medians[name] = {k: float(np.median([c[k] for c in calls]))
                          for k in calls[0]}
-    print(json.dumps({"outputs_identical": same, "share_equal_to_run0": shares,
-                      "label_share_equal_to_run0": label_shares,
-                      "median_s": medians, "config": args.config, "card": smi}))
-    return 0 if min(shares) >= args.min_share else 2
+    summary = {"outputs_identical": same, "share_equal_to_run0": shares,
+               "label_share_equal_to_run0": label_shares}
+    bf16 = "outputs_f32" in runs[0][1]
+    if bf16:
+        summary["share_equal_to_own_float32"] = [
+            share_equal(r["outputs"], r["outputs_f32"]) for _, r in runs]
+        summary["label_share_equal_to_own_float32"] = [
+            share_equal(r["outputs"], r["outputs_f32"], labels_only=True)
+            for _, r in runs]
+        summary["float32_share_equal_to_run0"] = [
+            share_equal(r["outputs_f32"], runs[0][1]["outputs_f32"]) for _, r in runs[1:]]
+    print(json.dumps({**summary, "median_s": medians, "config": args.config,
+                      "card": smi}))
+    return 0 if bf16 or min(shares) >= MIN_SHARE else 2
 
 
 def share_equal(outputs, ref, labels_only: bool = False) -> float:

@@ -74,13 +74,16 @@ class PointTransformerLayer(nn.Module):
         ``load_state_dict``, ``load_npz`` and ``copy_`` all count) or
         replaced. A layer whose tensors were made under
         ``torch.inference_mode`` has no version counters and folds anew each
-        call."""
+        call. The fold itself is made outside inference mode, so its tensors
+        keep version counters and the kernel layouts kept in the dict
+        (``attention.cached_layout``) last across calls of an
+        inference-mode pipeline."""
         state = [*self.parameters(), *self.buffers()]
         if any(t.is_inference() for t in state):
             return fold_attention_params(self, self.dtype)
         key = (self.dtype, *((id(t), t.data_ptr(), t.device, t._version) for t in state))
         if key != self._folded_key:
-            with torch.no_grad():
+            with torch.inference_mode(False), torch.no_grad():
                 self._folded = fold_attention_params(self, self.dtype)
             self._folded_key = key
         return self._folded

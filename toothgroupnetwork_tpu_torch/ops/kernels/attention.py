@@ -26,7 +26,8 @@ staged once a CTA, the channels of a wide layer split over a cluster) and
 the BatchNorm folding of ``fold_bn`` / ``fold_attention_params``
 (csrc/attention.cu states the bound, the design and the element type of
 each input). Each wrapper keeps the kernel layout of the parameters it is
-given in the dict itself (:func:`kernel_layout`), so a layer that keeps its
+given in the dict itself (:func:`kernel_layout`), built anew when a tensor
+of the dict is replaced or changed in place, so a layer that keeps its
 folded dict (``PointTransformerLayer.kernel_params``) packs once per load.
 """
 
@@ -141,12 +142,11 @@ def kernel_layout(params: dict, loader: int, dtype: torch.dtype,
     holds them (``tgn_attention_param_map``), and for K3 and K6 bk|bv
     ``[2C]`` and Wk|Wv transposed, ``[2C, Cin]`` float32 for float32 rows,
     ``[P, 2C, Cin]`` bf16 for bf16 rows: K3 the weights rounded to bf16
-    (P = 1, its contract), K6 the float32 weights in three pieces. Built once
-    and kept in ``params[LAYOUT_KEY]``; a dict whose tensors are changed in
-    place must be folded again."""
-    cache = params.setdefault(LAYOUT_KEY, {})
-    key = (loader, dtype, device)
-    if key not in cache:
+    (P = 1, its contract), K6 the float32 weights in three pieces. Kept in
+    ``params[LAYOUT_KEY]`` (:func:`cached_layout`) and built anew once a
+    tensor of ``params`` is replaced or changed in place."""
+
+    def make() -> dict:
         lib = build.library()
         c, cs = params["b1"].numel(), params["w1"].shape[-1]
         n = lib.tgn_attention_param_map(c, cs, None)
@@ -166,8 +166,27 @@ def kernel_layout(params: dict, loader: int, dtype: torch.dtype,
                     lay["w"] = wt.to(dtype).contiguous()[None]
                 else:
                     lay["w"] = _split_bf16(wt.contiguous()).contiguous()
-        cache[key] = lay
-    return cache[key]
+        return lay
+
+    return cached_layout(params, (loader, dtype, device), make)
+
+
+def cached_layout(params: dict, key, make):
+    """``make()``, kept in ``params[LAYOUT_KEY]`` under ``key`` with the
+    identity, storage and version counter of every tensor of ``params``,
+    and made anew when one of them differs: a tensor replaced, or changed
+    in place (``copy_``, ``mul_``, ``load_state_dict``). Nothing is kept
+    when a tensor has no version counter (made under
+    ``torch.inference_mode``)."""
+    tensors = [v for k, v in params.items() if k != LAYOUT_KEY]
+    cache = params.setdefault(LAYOUT_KEY, {})
+    if any(t.is_inference() for t in tensors):
+        return make()
+    stamp = tuple((id(t), t.data_ptr(), t._version) for t in tensors)
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = cache[key] = (stamp, make())
+    return hit[1]
 
 
 def _check_smem(lib, loader: int, n_rows: int, kk: int, c: int, cs: int,
@@ -195,13 +214,18 @@ def project_kv(x: torch.Tensor, params: dict) -> torch.Tensor:
     if params["wk"].shape[0] != cin:
         raise ValueError(f"project_kv: x {tuple(x.shape)} wk {tuple(params['wk'].shape)}")
     with torch.cuda.device(dev):
-        lib = build.library()
-        lay = kernel_layout(params, _K3, x.dtype, dev)
-        kv = torch.empty((m, 2 * c), dtype=torch.float32, device=dev)
-        status = lib.tgn_project_kv(x.data_ptr(), lay["w"].data_ptr(),
-                                    lay["bias"].data_ptr(), m, cin, c, kv.data_ptr(),
-                                    x.dtype == torch.bfloat16, stream_of(dev))
-        build.check(status, "tgn_project_kv")
+        return _project_kv(x, kernel_layout(params, _K3, x.dtype, dev), c)
+
+
+def _project_kv(x: torch.Tensor, lay: dict, c: int) -> torch.Tensor:
+    """Launch ``tgn_project_kv`` on x ``[M, Cin]`` (a CUDA tensor, checked)
+    with K3's kernel layout -> kv ``[M, 2C]`` float32."""
+    m, cin = x.shape
+    kv = torch.empty((m, 2 * c), dtype=torch.float32, device=x.device)
+    status = build.library().tgn_project_kv(
+        x.data_ptr(), lay["w"].data_ptr(), lay["bias"].data_ptr(), m, cin, c,
+        kv.data_ptr(), x.dtype == torch.bfloat16, stream_of(x.device))
+    build.check(status, "tgn_project_kv")
     project_kv.launches += 1
     return kv
 
@@ -233,14 +257,14 @@ def fused_vector_attention_packed_x(x: torch.Tensor, p: torch.Tensor,
     c = q.shape[1]
     cs = params["w1"].shape[-1]
     if (tuple(p.shape) != (b, n, 3) or tuple(knn_idx.shape[:2]) != (b, n)
-            or q.shape[0] != b * n or c % cs):
+            or q.shape[0] != b * n or c % cs or params["wk"].shape != (cin, c)):
         raise ValueError(f"attention: x {tuple(x.shape)} p {tuple(p.shape)} "
                          f"idx {tuple(knn_idx.shape)} q {tuple(q.shape)} cs {cs}")
     with torch.cuda.device(dev):
         lib = build.library()
         _check_smem(lib, _K3, b * n, kk, c, cs, f"K={kk} C={c}")
         lay = kernel_layout(params, _K3, x.dtype, dev)
-        kv = project_kv(x.reshape(b * n, cin), params)
+        kv = _project_kv(x.reshape(b * n, cin), lay, c)
         out = torch.empty((b * n, c), dtype=x.dtype, device=dev)
         status = lib.tgn_attention(kv.data_ptr(), p.data_ptr(), knn_idx.data_ptr(),
                                    q.data_ptr(), lay["params"].data_ptr(), b, n, kk, c,
@@ -248,10 +272,15 @@ def fused_vector_attention_packed_x(x: torch.Tensor, p: torch.Tensor,
                                    stream_of(dev))
         build.check(status, "tgn_attention")
     fused_vector_attention_packed_x.launches += 1
+    shape = (b, n, kk, c, x.dtype)
+    by_shape = fused_vector_attention_packed_x.launches_by_shape
+    by_shape[shape] = by_shape.get(shape, 0) + 1
     return out
 
 
 fused_vector_attention_packed_x.launches = 0
+# the same launches by (B, N, K, C, dtype); cleared with the count
+fused_vector_attention_packed_x.launches_by_shape = {}
 
 
 def fused_vector_attention(q: torch.Tensor, x_g: torch.Tensor, p_r: torch.Tensor,
@@ -363,14 +392,21 @@ def fused_vector_attention_packed_reference(q, k_g, v_g, p_r, params, *,
                            params, k)
 
 
+def _kv_in(params: dict, dtype: torch.dtype) -> dict:
+    """K3's contract: with bf16 rows the k/v weights are rounded to bf16
+    first (the bf16 kron weights of ``fused_vector_attention_packed_x``)."""
+    if dtype == torch.float32:
+        return params
+    return {**params, "wk": _round(params["wk"], dtype),
+            "wv": _round(params["wv"], dtype)}
+
+
 def project_kv_reference(x, params) -> torch.Tensor:
     """Plain twin of :func:`project_kv`: ``x [Wk | Wv] + [bk | bv]`` in
-    float32, Wk/Wv rounded to x's dtype first (K3's contract: the bf16 kron
-    weights of ``fused_vector_attention_packed_x``)."""
-    w = torch.cat([params["wk"], params["wv"]], dim=1)
-    if x.dtype != torch.float32:
-        w = _round(w, x.dtype)
-    return x.float() @ w + torch.cat([params["bk"], params["bv"]])
+    float32, Wk/Wv rounded to x's dtype first (:func:`_kv_in`)."""
+    kv = _kv_in(params, x.dtype)
+    return (x.float() @ torch.cat([kv["wk"], kv["wv"]], dim=1)
+            + torch.cat([kv["bk"], kv["bv"]]))
 
 
 def gathered_kv_attention_reference(kv, p, knn_idx, q, params,
@@ -392,8 +428,16 @@ def gathered_kv_attention_reference(kv, p, knn_idx, q, params,
 
 def fused_vector_attention_packed_x_reference(x, p, knn_idx, q,
                                               params) -> torch.Tensor:
-    """Plain twin of K3: :func:`project_kv_reference` of every point, then
-    :func:`gathered_kv_attention_reference`; out in x's dtype."""
-    b, n, cin = x.shape
-    kv = project_kv_reference(x.reshape(b * n, cin), params)
-    return gathered_kv_attention_reference(kv, p, knn_idx, q, params, x.dtype)
+    """Plain twin of K3: the neighbour gathers and the relative positions
+    (rounded to x's dtype), then the K6 twin with Wk/Wv rounded to x's
+    dtype, out in x's dtype. It projects every gathered row, as the JAX
+    kernel's ``kron`` dot does; the twins of K3's two kernels are
+    :func:`project_kv_reference` and :func:`gathered_kv_attention_reference`."""
+    from ..gather import index_points
+
+    b, n, kk = knn_idx.shape
+    x_g = index_points(x, knn_idx).reshape(b * n * kk, -1)
+    p_r = (index_points(p, knn_idx) - p[:, :, None, :]).reshape(b * n * kk, 3)
+    out = fused_vector_attention_reference(q, x_g, p_r.to(x.dtype),
+                                           _kv_in(params, x.dtype), k=kk)
+    return out.to(x.dtype)
