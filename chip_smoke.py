@@ -17,7 +17,9 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      with bf16 rows' matrix products over 989 TFLOP/s, the bf16 tensor-core
      peak) and, where one PyTorch call computes the same function, that
      call's time (``torch.addmm`` beside K3's k/v projection ``project_kv``;
-     K3 at every shape one scan gives it, each with its launches a scan)
+     K3 at every shape one scan gives it, each with its launches a scan;
+     device times of CUDA-graph replays for K3-K8, ``project_kv``,
+     ``torch.addmm`` and ``torch.index_select``)
      (K1 with its cluster size and microseconds a step, beside its chain
      floor: the per-step exchange alone over 24000 steps on 16 CTAs, K1's
      and the cluster-barrier design's; K2 also on the first cloud spatially
@@ -43,7 +45,14 @@ is no CUDA device or when the port is not beside it. Phases, one line each
   8. the two entries no model layer calls (as in the JAX package): the
      row gather K8 through ``ops.gather.gather_neighbors`` under
      ``TGN_TPU_GATHER=mxu`` and the pre-projected attention K7 through its
-     wrapper, each launched and checked.
+     wrapper, each launched and checked;
+  9. serve many: six more synthetic scans (seeds 0-5) served serially and
+     then through ``TgnInferencePipeline.run_many`` (three scans in flight,
+     each on its own CUDA stream, two spawned prep processes), three of them
+     in the cell and bfloat16 configurations: outputs identical to serial,
+     launch counts equal, serial and overlapped scans per second, the
+     phases' seconds a scan both ways, the busy share of one profiled batch,
+     the kernel library loaded once, no prep worker with CUDA initialised.
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -57,7 +66,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -112,6 +123,14 @@ HBM_BYTES_PER_S = 3.35e12
 # K3's launches a scan by shape in each configuration's main-path run
 # (phase_slice), from its wrapper's count
 SCAN_K3_SHAPES: dict = {}
+# the serve-many phase: six synthetic scans (seeds 0-5) through run_many with
+# three scans in flight and two prep processes; the cell and bf16
+# configurations serve the first three
+SERVE_SEEDS = range(6)
+SERVE_SCANS = {"default": 6, "cell": 3, "bf16": 3}
+SERVE_WORKERS, SERVE_PREP = 3, 2
+# scans in flight swept on the default configuration's batch
+SERVE_SWEEP = (1, 2, 4)
 
 
 def log(phase: str, **fields) -> None:
@@ -404,15 +423,19 @@ def phase_kernels(dev, gen):
                 w = torch.cat([params["wk"], params["wv"]], dim=1)
                 bias = torch.cat([params["bk"], params["bv"]])
                 library_ms = None
+                lib_extra = {}
                 if not bf16:
                     library_ms = cuda_ms(lambda: torch.addmm(bias, x2, w), 5)
+                    lib_extra["library_device_ms"] = graph_ms(
+                        lambda: torch.addmm(bias, x2, w))
                 rec_kv.add(f"M{b * n}/Cin{c}/C{c}{tag}", err,
                            cuda_ms(lambda: attention.project_kv(x2, params), 5),
                            cuda_ms(lambda: attention.project_kv_reference(x2, params),
                                    3),
                            ops=proj, moved=nbytes(x2, w.to(dtype), bias, kv),
                            tensor_ops=proj if bf16 else 0.0, library_ms=library_ms,
-                           device_ms=graph_ms(lambda: attention.project_kv(x2, params)))
+                           device_ms=graph_ms(lambda: attention.project_kv(x2, params)),
+                           **lib_extra)
     return ([rec_fps, rec_knn, rec_att, rec_kv] + phase_cell_kernels(dev, gen, cloud)
             + phase_entry_kernels(dev, gen, cloud))
 
@@ -470,7 +493,8 @@ def phase_cell_kernels(dev, gen, cloud):
               cuda_ms(lambda: cell_select.cell_select_p_reference(blk_p, pos, p), 5),
               ops=float(got.numel()),
               moved=referenced_bytes(blk_p.reshape(-1, 3), cell_rows(pos, l8))
-              + nbytes(pos, p, got))
+              + nbytes(pos, p, got),
+              device_ms=graph_ms(lambda: cell_select.cell_select_p(blk_p, pos, p)))
     p_r36 = got
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -491,7 +515,8 @@ def phase_cell_kernels(dev, gen, cloud):
                       ops=0.0, moved=referenced_bytes(blk_x.reshape(-1, c),
                                                       cell_rows(pos, l8))
                       + nbytes(pos, got),
-                      blk_mb=nbytes(blk_x) / 1e6, x_g_mb=nbytes(got) / 1e6)
+                      blk_mb=nbytes(blk_x) / 1e6, x_g_mb=nbytes(got) / 1e6,
+                      device_ms=graph_ms(lambda: cell_select.cell_select_x(blk_x, pos)))
 
             # K6: float32 q, weights and out; rows and p_r in the dtype
             layer = PointTransformerLayer(c, device=dev)
@@ -585,7 +610,10 @@ def phase_entry_kernels(dev, gen, cloud):
                        ops=0.0, moved=referenced_bytes(x.reshape(-1, c), flat)
                        + nbytes(idx, got),
                        library_ms=cuda_ms(lambda: torch.index_select(
-                           x.reshape(b * n, c), 0, flat), 20))
+                           x.reshape(b * n, c), 0, flat), 20),
+                       device_ms=graph_ms(lambda: gather.onehot_gather_packed(x, idx)),
+                       library_device_ms=graph_ms(lambda: torch.index_select(
+                           x.reshape(b * n, c), 0, flat)))
     return [rec_k7, rec_k8]
 
 
@@ -811,7 +839,7 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
         raise AssertionError("repeated scan: output differs from the first run")
     log("repeat", what=what, scan=scans[0].name, identical=True, wall_s=again_s,
         timings_s=dict(pipeline.timings))
-    profile_call(pipeline, scans[0], what)
+    profile_call(lambda: pipeline(str(scans[0])), what)
     return launches, pipeline
 
 
@@ -835,15 +863,16 @@ def phase_ab(pipes: dict, scan: Path, rounds: int = 2) -> None:
             wall_s=[c["wall_s"] for c in calls])
 
 
-def profile_call(pipeline, scan: Path, what: str) -> None:
-    """One more call under torch.profiler: the device's busy share (merged
-    kernel intervals over the call's wall time) and device time by kernel."""
+def profile_call(call, what: str) -> float:
+    """``call()`` once more under torch.profiler: the device's busy share
+    (kernel intervals of every stream merged, over the call's wall time) and
+    device time by kernel. Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline(str(scan))
+        call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
@@ -863,6 +892,146 @@ def profile_call(pipeline, scan: Path, what: str) -> None:
         busy_share=busy / wall,
         device_s_by_kernel={short(name): t for name, (t, _) in top},
         launches_by_kernel={short(name): n for name, (_, n) in top})
+    return busy / wall
+
+
+def worker_cuda_state() -> dict:
+    """Run in a prep worker of ``run_many``: whether the process imported
+    torch (this script's top level, which a spawned worker imports again as
+    ``__mp_main__``) and whether it initialised CUDA, which it must not."""
+    torch_mod = sys.modules.get("torch")
+    return {"pid": os.getpid(), "torch_imported": torch_mod is not None,
+            "cuda_initialized": bool(torch_mod and torch_mod.cuda.is_initialized())}
+
+
+class PhaseSeconds:
+    """Inside the block, every phase time a pipeline records
+    (``TgnInferencePipeline._t``) is also summed here by phase, over all
+    scans and threads: the host phases' cost under overlap, beside serial."""
+
+    def __enter__(self):
+        from toothgroupnetwork_tpu_torch.pipelines.tgn import TgnInferencePipeline
+
+        self.totals, lock = defaultdict(float), threading.Lock()
+        self._cls, self._orig = TgnInferencePipeline, TgnInferencePipeline.__dict__["_t"]
+        record = self._orig.__func__
+
+        def _t(timings, name, t0):
+            now = record(timings, name, t0)
+            with lock:
+                self.totals[name] += now - t0
+            return now
+
+        TgnInferencePipeline._t = staticmethod(_t)
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._t = self._orig
+
+
+def phase_serve_many(pipes: dict, work: Path, kernels) -> None:
+    """Each configuration's pipeline serves its scans serially, then (after
+    one warm batch) through ``run_many``: every scan's labels and instances
+    identical to its serial output, each kernel's launches over the batch
+    equal to the serial count, K3's by-shape counts summing to its count,
+    the kernel library loaded once, no prep worker with CUDA initialised.
+    Logs scans per second both ways, the phases' seconds a scan both ways,
+    and (default) the device's busy share over one more batch and scans per
+    second with 1, 2 and 4 scans in flight (``SERVE_SWEEP``)."""
+    from synthetic import write_synthetic_obj
+
+    from toothgroupnetwork_tpu_torch.ops.kernels import build
+    from toothgroupnetwork_tpu_torch.ops.kernels.attention import (
+        fused_vector_attention_packed_x as k3)
+
+    scan_dir = work / "serve"
+    scan_dir.mkdir()
+    scans = []
+    for seed in SERVE_SEEDS:
+        path = scan_dir / f"serve{seed}_{('lower', 'upper')[seed % 2]}.obj"
+        write_synthetic_obj(str(path), n_side=N_SIDE, seed=seed)
+        scans.append(str(path))
+
+    def batch(pipe, paths, way):
+        for k in kernels:
+            k.launches = 0
+        k3.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        with PhaseSeconds() as phases:
+            t0 = time.perf_counter()
+            outs = ([pipe(p) for p in paths] if way == "serial" else
+                    pipe.run_many(paths, workers=SERVE_WORKERS,
+                                  prep_workers=SERVE_PREP))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return {"outs": outs, "wall_s": wall,
+                "launches": {k.__name__: k.launches for k in kernels},
+                "k3_by_shape": sum(k3.launches_by_shape.values()),
+                "phase_s_per_scan": {k: v / len(paths)
+                                     for k, v in phases.totals.items()}}
+
+    for name, n in SERVE_SCANS.items():
+        pipe, paths = pipes[name], scans[:n]
+        try:
+            serial = batch(pipe, paths, "serial")
+            pipe.run_many(paths, workers=SERVE_WORKERS, prep_workers=SERVE_PREP)
+            over = batch(pipe, paths, "overlapped")
+            same = [bool(np.array_equal(o["sem"], s["sem"])
+                         and np.array_equal(o["ins"], s["ins"]))
+                    for o, s in zip(over["outs"], serial["outs"])]
+            log("serve_many", config=name, scans=n, workers=SERVE_WORKERS,
+                prep_workers=SERVE_PREP, serial_s=serial["wall_s"],
+                overlapped_s=over["wall_s"],
+                serial_scans_per_s=n / serial["wall_s"],
+                overlapped_scans_per_s=n / over["wall_s"],
+                speedup=serial["wall_s"] / over["wall_s"], identical=same,
+                launches_serial=serial["launches"],
+                launches_overlapped=over["launches"],
+                k3_by_shape_sum=over["k3_by_shape"],
+                phase_s_per_scan={"serial": serial["phase_s_per_scan"],
+                                  "overlapped": over["phase_s_per_scan"]})
+            if not all(same):
+                raise AssertionError(f"serve_many {name}: run_many outputs differ "
+                                     f"from serial ones ({same})")
+            if over["launches"] != serial["launches"]:
+                raise AssertionError(f"serve_many {name}: launches {over['launches']}"
+                                     f" under run_many, {serial['launches']} serial")
+            if over["k3_by_shape"] != over["launches"][k3.__name__]:
+                raise AssertionError(f"serve_many {name}: K3 by shape sums to "
+                                     f"{over['k3_by_shape']}, its count is "
+                                     f"{over['launches'][k3.__name__]}")
+            if name == "default":
+                profile_call(lambda: pipe.run_many(paths, workers=SERVE_WORKERS,
+                                                   prep_workers=SERVE_PREP),
+                             "serve_many default")
+                pool = pipe._prep_pool(SERVE_PREP)
+                states = [pool.submit(worker_cuda_state).result()
+                          for _ in range(2 * SERVE_PREP)]
+                log("prep_workers", states=states)
+                if any(st["cuda_initialized"] for st in states):
+                    raise AssertionError(f"a prep worker initialised CUDA: {states}")
+                for w in SERVE_SWEEP:
+                    pipe.run_many(paths, workers=w, prep_workers=SERVE_PREP)
+                    torch.cuda.synchronize()
+                    with PhaseSeconds() as phases:
+                        t0 = time.perf_counter()
+                        outs = pipe.run_many(paths, workers=w, prep_workers=SERVE_PREP)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                    same = all(np.array_equal(o["sem"], r["sem"])
+                               and np.array_equal(o["ins"], r["ins"])
+                               for o, r in zip(outs, serial["outs"]))
+                    log("serve_many_sweep", config=name, workers=w, scans=n,
+                        scans_per_s=n / wall, identical=same,
+                        phase_s_per_scan={k: v / n for k, v in phases.totals.items()})
+                    if not same:
+                        raise AssertionError(f"serve_many {name}, {w} in flight: "
+                                             "outputs differ from serial ones")
+        finally:
+            pipe.close()
+    log("build", loads=build.build_info["loads"], built=build.build_info["built"])
+    if build.build_info["loads"] != 1:
+        raise AssertionError(f"kernel library loaded {build.build_info['loads']} times")
 
 
 def short(kernel_name: str) -> str:
@@ -953,6 +1122,7 @@ def main() -> int:
                 kernels, unused, config=cfg_path, what=f"{name}_slice")
         phase_ab(pipes, scans[0])
         entry_launches = phase_entries(dev, feats0)
+        phase_serve_many(pipes, work, base + cell + entry)
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the

@@ -463,3 +463,72 @@ class TestCellKernelsOnCard:
                                                              k=kk)
         torch.cuda.synchronize()
         assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+class TestConcurrentLaunchesOnCard:
+    """Scans served from several threads (``TgnInferencePipeline.run_many``)
+    launch the kernels at once, each thread on its own CUDA stream."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_threads_on_their_own_streams(self, cuda_device, gen, dtype):
+        """Four threads, each on its own stream, released together by a
+        barrier, launch K1, K2 and K3 (one shared layer, its fold and
+        kernel layout not made beforehand, so the threads race to make
+        them) on inputs of their own: every output equals its twin's (K3
+        within its tolerance), the launch counts and K3's by-shape counts
+        are exact, and the kernel library is loaded once."""
+        from concurrent.futures import ThreadPoolExecutor
+        from threading import Barrier
+
+        from toothgroupnetwork_tpu_torch.ops.kernels import build
+
+        n_threads, reps, b, n, m, kk, c = 4, 3, 1, 3000, 600, 24, 32
+        layer = PointTransformerLayer(c, device=cuda_device, dtype=dtype)
+        randomize_(layer, torch.Generator().manual_seed(1))
+        inputs = []
+        for _ in range(n_threads):
+            p = _cloud(gen, b, n, 3, device=cuda_device)
+            x = (_cloud(gen, b, n, c, device=cuda_device) * 0.5).to(dtype)
+            with torch.no_grad():
+                q = layer.linear_q(x).reshape(b * n, c).contiguous()
+            inputs.append((p, x, q, _knn_idx(gen, b, n, kk, cuda_device)))
+        torch.cuda.synchronize()
+        kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x)
+        for k in kernels:
+            k.launches = 0
+        attention.fused_vector_attention_packed_x.launches_by_shape.clear()
+        barrier = Barrier(n_threads)
+
+        def work(i):
+            p, x, q, idx = inputs[i]
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.stream(stream), torch.no_grad():
+                barrier.wait()
+                outs = [(fps.fps(p, m), knn.knn_select(p, p, kk),
+                         attention.fused_vector_attention_packed_x(
+                             x, p, idx, q, layer.kernel_params()))
+                        for _ in range(reps)]
+            stream.synchronize()
+            return outs
+
+        with ThreadPoolExecutor(n_threads) as ex:
+            results = list(ex.map(work, range(n_threads)))
+        torch.cuda.synchronize()
+        assert [k.launches for k in kernels] == [n_threads * reps] * 3
+        assert attention.fused_vector_attention_packed_x.launches_by_shape == {
+            (b, n, kk, c, dtype): n_threads * reps}
+        assert build.build_info["loads"] == 1
+        params = layer.kernel_params()
+        for (p, x, q, idx), outs in zip(inputs, results):
+            ref_i, ref_d = knn.knn_select_reference(p, p, kk)
+            with torch.no_grad():
+                ref_a = attention.fused_vector_attention_packed_x_reference(
+                    x, p, idx, q, params)
+            for got_f, (got_i, got_d), got_a in outs:
+                assert torch.equal(got_f, fps.fps_reference(p, m))
+                assert torch.equal(got_i, ref_i) and torch.equal(got_d, ref_d)
+                if dtype == torch.bfloat16:
+                    assert _within_one_bf16_ulp(got_a, ref_a)
+                else:
+                    assert (got_a - ref_a).abs().max().item() <= 1e-4

@@ -91,6 +91,18 @@ class TestClustering:
         got = clustering.kmeans(pts, 7, seed=0)
         assert np.mean(got == ref) >= 0.99 or _same_partition(got, ref)
 
+    @pytest.mark.parametrize("k", [1, 3, 10])
+    def test_row_modes_match_unique(self, rng, k):
+        """The noise absorption's vote, all rows at once: each row's most
+        frequent label, the smallest among ties, as ``np.unique`` with
+        counts and ``argmax`` give it row by row."""
+        votes = rng.integers(-1, 5, (3000, k))
+        want = []
+        for row in votes:
+            u, c = np.unique(row, return_counts=True)
+            want.append(u[np.argmax(c)])
+        np.testing.assert_array_equal(clustering._row_modes(votes), want)
+
     def test_instance_labels_match_jax(self, rng):
         pts, _, cls = make_synthetic_jaw_points(2400, n_teeth=8, seed=1)
         moved = pts + rng.normal(0, 0.002, pts.shape).astype(np.float32)

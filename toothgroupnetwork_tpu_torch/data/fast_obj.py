@@ -9,6 +9,7 @@ The library is optional: :func:`parse_obj_fast` returns None when
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -17,12 +18,19 @@ LIB_PATH = Path(__file__).resolve().parents[2] / "native" / "libfast_obj.so"
 
 _lib = None
 _tried = False
+# scans prepared in several threads at once load the library once
+_LOCK = threading.Lock()
 
 
 def _load():
-    global _lib, _tried
-    if _tried:
+    with _LOCK:
+        if not _tried:
+            _open()
         return _lib
+
+
+def _open():
+    global _lib, _tried
     _tried = True
     if not LIB_PATH.exists():
         return None

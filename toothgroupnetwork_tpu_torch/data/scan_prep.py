@@ -3,6 +3,10 @@ toothgroupnetwork_tpu/data/scan_prep.py, same arithmetic): obj parse,
 vertex dedup, per-scan y-extent normalisation, vertex normals, midpoint
 subdivision of small meshes. The FPS sampling that follows runs on the
 device (``pipelines/tgn.py``, K1).
+
+The module's import closure is numpy only (no torch): ``run_many`` runs
+the prep in spawned worker processes, which import this module and so never
+touch the card.
 """
 
 from __future__ import annotations
@@ -15,6 +19,13 @@ from .mesh_io import compute_vertex_normals, parse_obj, subdivide_midpoint
 SCALER = 1.8
 SHIFTER = 0.8
 N_SAMPLE = 24000
+
+
+def warm_worker(_i: int = 0) -> bool:
+    """Prep-pool warm-up target: a spawned worker pays its Python and numpy
+    imports here, outside any batch's timing
+    (``pipelines/tgn.py:TgnInferencePipeline._prep_pool``)."""
+    return True
 
 
 def normalize_scan_vertices(vertices: np.ndarray) -> np.ndarray:

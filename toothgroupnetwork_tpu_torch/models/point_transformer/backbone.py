@@ -29,6 +29,7 @@ mechanically (utils/weights.py). Structure kept from the JAX package:
 from __future__ import annotations
 
 import os
+import threading
 from collections.abc import Sequence
 
 import torch
@@ -39,10 +40,15 @@ from ...ops import (farthest_point_sample, index_points, knn_interpolate,
                     knn_points, knn_self)
 from ...ops.cells import (build_cell_candidates, gather_candidate_blocks,
                           pos_with_self_fallback)
+from ...ops.kernels._launch import settle
 from ...ops.kernels.attention import (fold_attention_params,
                                       fused_vector_attention,
-                                      fused_vector_attention_packed_x)
+                                      fused_vector_attention_packed_x,
+                                      prepare_layouts)
 from ...ops.kernels.cell_select import cell_select_p, cell_select_x
+
+# guards every layer's folded parameters (PointTransformerLayer.kernel_params)
+_FOLD_LOCK = threading.Lock()
 
 
 class PointTransformerLayer(nn.Module):
@@ -82,11 +88,15 @@ class PointTransformerLayer(nn.Module):
         if any(t.is_inference() for t in state):
             return fold_attention_params(self, self.dtype)
         key = (self.dtype, *((id(t), t.data_ptr(), t.device, t._version) for t in state))
-        if key != self._folded_key:
-            with torch.inference_mode(False), torch.no_grad():
-                self._folded = fold_attention_params(self, self.dtype)
-            self._folded_key = key
-        return self._folded
+        # scans in flight on several streams share the fold: it is made
+        # under a lock and kept only once its stream has finished it
+        with _FOLD_LOCK:
+            if key != self._folded_key:
+                with torch.inference_mode(False), torch.no_grad():
+                    folded = fold_attention_params(self, self.dtype)
+                settle(folded)
+                self._folded, self._folded_key = folded, key
+            return self._folded
 
     def forward(self, p, x, knn_idx, cell=None):
         """``cell``: the stage's ``(cand, pos, p_r)`` candidate context
@@ -267,6 +277,20 @@ class PointTransformerSeg(nn.Module):
                 planes[i], share_planes, **kw))
         self.cls_head = MultiHead(k, planes[:bn], base_fdim, **kw)
         self.offset_head = MultiHead(3, planes[:bn], base_fdim, **kw)
+
+    def prepare_kernel_state(self) -> None:
+        """Fold every attention layer's parameters and, on a CUDA device,
+        build the kernel layouts its forward reads (K3's; with
+        ``cell_attention`` K6's too) on the calling thread, so that scans
+        served from several threads only read them. The caller waits for
+        the card before those threads start."""
+        for m in self.modules():
+            if isinstance(m, PointTransformerLayer):
+                params = m.kernel_params()
+                dev = m.linear_q.weight.device
+                if dev.type == "cuda":
+                    prepare_layouts(params, m.dtype, dev,
+                                    gathered=self.cell_attention)
 
     def _cell_ctx(self, p, knn_idx):
         """The stage's ``(cand, pos)`` candidate context, or None where the

@@ -58,6 +58,12 @@ class TGNet(nn.Module):
         self.first = PointTransformerSeg(k=10, **kw)
         self.second = PointTransformerSeg(k=2, **kw)
 
+    def prepare_kernel_state(self) -> None:
+        """Fold and lay out both backbones' attention parameters on the
+        calling thread (``PointTransformerSeg.prepare_kernel_state``)."""
+        self.first.prepare_kernel_state()
+        self.second.prepare_kernel_state()
+
     def stage1(self, feat, mask=None):
         return self.first(feat, mask)
 

@@ -34,11 +34,13 @@ folded dict (``PointTransformerLayer.kernel_params``) packs once per load.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import build
-from ._launch import MODEL_DTYPES, on_cpu, require, stream_of
+from ._launch import (MODEL_DTYPES, count_launch, on_cpu, require, settle,
+                      stream_of)
 
 SMEM_LIMIT = 232448  # bytes a Hopper block may opt into (227 KB)
 
@@ -50,6 +52,8 @@ _PACK_ORDER = ("a0", "b0", "a1", "b1", "bn0_scale", "bn0_shift", "w0", "c0",
 LAYOUT_KEY = "_kernel_layout"
 # the loaders of csrc/attention.cu
 _K3, _K6, _K7 = 0, 1, 2
+# guards every parameter dict's layouts (cached_layout)
+_LAYOUT_LOCK = threading.Lock()
 
 
 def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -177,16 +181,34 @@ def cached_layout(params: dict, key, make):
     and made anew when one of them differs: a tensor replaced, or changed
     in place (``copy_``, ``mul_``, ``load_state_dict``). Nothing is kept
     when a tensor has no version counter (made under
-    ``torch.inference_mode``)."""
-    tensors = [v for k, v in params.items() if k != LAYOUT_KEY]
-    cache = params.setdefault(LAYOUT_KEY, {})
-    if any(t.is_inference() for t in tensors):
-        return make()
-    stamp = tuple((id(t), t.data_ptr(), t._version) for t in tensors)
-    hit = cache.get(key)
-    if hit is None or hit[0] != stamp:
-        hit = cache[key] = (stamp, make())
-    return hit[1]
+    ``torch.inference_mode``).
+
+    A layout kept in the dict is read by every scan in flight, each on its
+    own stream (``TgnInferencePipeline.run_many``), so the look-up and the
+    rebuild hold one lock and a new layout is stored only once the stream
+    that made it has finished it (``settle``)."""
+    with _LAYOUT_LOCK:
+        tensors = [v for k, v in params.items() if k != LAYOUT_KEY]
+        if any(t.is_inference() for t in tensors):
+            return make()
+        cache = params.setdefault(LAYOUT_KEY, {})
+        stamp = tuple((id(t), t.data_ptr(), t._version) for t in tensors)
+        hit = cache.get(key)
+        if hit is None or hit[0] != stamp:
+            lay = make()
+            settle(lay)
+            hit = cache[key] = (stamp, lay)
+        return hit[1]
+
+
+def prepare_layouts(params: dict, dtype: torch.dtype, device: torch.device,
+                    gathered: bool = False) -> None:
+    """Make (or find) the kernel layouts K3, and with ``gathered`` K6, read
+    for ``params`` with rows of ``dtype`` on ``device``, on the calling
+    thread's stream."""
+    kernel_layout(params, _K3, dtype, device)
+    if gathered:
+        kernel_layout(params, _K6, dtype, device)
 
 
 def _check_smem(lib, loader: int, n_rows: int, kk: int, c: int, cs: int,
@@ -226,7 +248,7 @@ def _project_kv(x: torch.Tensor, lay: dict, c: int) -> torch.Tensor:
         x.data_ptr(), lay["w"].data_ptr(), lay["bias"].data_ptr(), m, cin, c,
         kv.data_ptr(), x.dtype == torch.bfloat16, stream_of(x.device))
     build.check(status, "tgn_project_kv")
-    project_kv.launches += 1
+    count_launch(project_kv)
     return kv
 
 
@@ -271,10 +293,7 @@ def fused_vector_attention_packed_x(x: torch.Tensor, p: torch.Tensor,
                                    cs, out.data_ptr(), x.dtype == torch.bfloat16,
                                    stream_of(dev))
         build.check(status, "tgn_attention")
-    fused_vector_attention_packed_x.launches += 1
-    shape = (b, n, kk, c, x.dtype)
-    by_shape = fused_vector_attention_packed_x.launches_by_shape
-    by_shape[shape] = by_shape.get(shape, 0) + 1
+    count_launch(fused_vector_attention_packed_x, (b, n, kk, c, x.dtype))
     return out
 
 
@@ -315,7 +334,7 @@ def fused_vector_attention(q: torch.Tensor, x_g: torch.Tensor, p_r: torch.Tensor
                                             x_g.dtype == torch.bfloat16,
                                             stream_of(dev))
         build.check(status, "tgn_attention_gathered")
-    fused_vector_attention.launches += 1
+    count_launch(fused_vector_attention)
     return out
 
 
@@ -353,7 +372,7 @@ def fused_vector_attention_packed(q: torch.Tensor, k_g: torch.Tensor,
                                              out.data_ptr(), q.dtype == torch.bfloat16,
                                              stream_of(dev))
         build.check(status, "tgn_attention_projected")
-    fused_vector_attention_packed.launches += 1
+    count_launch(fused_vector_attention_packed)
     return out
 
 

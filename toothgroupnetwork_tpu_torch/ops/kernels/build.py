@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -45,8 +46,11 @@ _SIGNATURES = {
     "tgn_error_string": ([_I], ctypes.c_char_p),
 }
 
-# The loaded library is a process-wide resource: one handle, built once.
+# The loaded library is a process-wide resource: one handle, built once,
+# under a lock, so that threads arriving together (the scans of
+# ``TgnInferencePipeline.run_many``) neither compile nor load it twice.
 _lib: ctypes.CDLL | None = None
+_LOCK = threading.Lock()
 build_info: dict = {}
 
 
@@ -110,9 +114,16 @@ def _compile(out: Path, log_path: Path) -> None:
 
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on any failure."""
-    global _lib
     if _lib is not None:
         return _lib
+    with _LOCK:
+        return _lib or _load()
+
+
+def _load() -> ctypes.CDLL:
+    """Build (if the library of these sources is absent) and load; called
+    under ``_LOCK``."""
+    global _lib
     key = source_hash()
     out = BUILD_DIR / f"libtgn_kernels_{key}.so"
     log = BUILD_DIR / f"libtgn_kernels_{key}.log"
@@ -128,7 +139,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     build_info.update(path=str(out), key=key, built=built,
-                      seconds=time.perf_counter() - t0, log=str(log))
+                      seconds=time.perf_counter() - t0, log=str(log),
+                      loads=build_info.get("loads", 0) + 1)
     _lib = lib
     return lib
 

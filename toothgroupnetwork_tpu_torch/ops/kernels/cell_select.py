@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import MODEL_DTYPES, on_cpu, require, stream_of
+from ._launch import MODEL_DTYPES, count_launch, on_cpu, require, stream_of
 
 CELL = 8
 
@@ -46,7 +46,7 @@ def cell_select_x(blk_x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
                                        l8, c * blk_x.element_size(), out.data_ptr(),
                                        stream_of(dev))
         build.check(status, "tgn_cell_select_x")
-    cell_select_x.launches += 1
+    count_launch(cell_select_x)
     return out
 
 
@@ -73,7 +73,7 @@ def cell_select_p(blk_p: torch.Tensor, pos: torch.Tensor,
                                        p_q.data_ptr(), n, kk, blk_p.shape[1],
                                        out.data_ptr(), stream_of(dev))
         build.check(status, "tgn_cell_select_p")
-    cell_select_p.launches += 1
+    count_launch(cell_select_p)
     return out
 
 

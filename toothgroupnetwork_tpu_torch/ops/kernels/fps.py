@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import on_cpu, require, stream_of
+from ._launch import count_launch, on_cpu, require, stream_of
 
 MAX_CLUSTER = 16
 # points per CTA the cluster size aims at: a step's update of a slice this
@@ -52,7 +52,7 @@ def fps(xyz: torch.Tensor, n_samples: int,
                              b, n, n_samples, cluster_size(n), dist.data_ptr(),
                              out.data_ptr(), stream_of(dev))
         build.check(status, "tgn_fps")
-    fps.launches += 1
+    count_launch(fps)
     return out
 
 

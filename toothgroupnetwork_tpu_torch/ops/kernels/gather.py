@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import MODEL_DTYPES, on_cpu, require, stream_of
+from ._launch import MODEL_DTYPES, count_launch, on_cpu, require, stream_of
 
 
 def onehot_gather_packed(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -39,7 +39,7 @@ def onehot_gather_packed(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                      c * x.element_size(), out.data_ptr(),
                                      stream_of(dev))
         build.check(status, "tgn_gather_rows")
-    onehot_gather_packed.launches += 1
+    count_launch(onehot_gather_packed)
     return out
 
 

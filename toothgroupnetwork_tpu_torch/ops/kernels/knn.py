@@ -19,7 +19,7 @@ import torch
 
 from ..distance import square_distance
 from . import build
-from ._launch import on_cpu, require, stream_of
+from ._launch import count_launch, on_cpu, require, stream_of
 
 MAX_K = 64
 
@@ -54,7 +54,7 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
                              b, m, n, k, idx.data_ptr(), d2.data_ptr(),
                              stream_of(dev))
         build.check(status, "tgn_knn")
-    knn_select.launches += 1
+    count_launch(knn_select)
     return idx, d2
 
 

@@ -19,18 +19,28 @@ The model forwards run on ``device``; the fps model computes in
 ``model_parameter["dtype"]`` (float32 by default, or bfloat16, the JAX
 package's serving dtype), the bdl model in float32, and logits, offsets and
 votes reach the host in float32. Everything between them is host numpy.
+
+``run_many`` serves several scans at once: each scan in flight runs on a
+thread of its own and, on a CUDA device, on a CUDA stream of its own, and
+the host mesh prep can run ahead in spawned worker processes.
 """
 
 from __future__ import annotations
 
 import copy
+import multiprocessing as mp
+import os
+import queue
 import time
 from collections import defaultdict
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
+from ..data import scan_prep
 from ..data.scan_prep import N_SAMPLE, prep_scan_host_tgn
 from ..models.tasks import (TGNET_BDL_ARCH, build_tgnet_bdl, build_tgnet_fps,
                             tgnet_fps_config)
@@ -87,9 +97,19 @@ def _moved_f16(feats_xyz: torch.Tensor, offset: torch.Tensor) -> np.ndarray:
 
 
 class TgnInferencePipeline:
-    def __init__(self, fps_ckpt: str, bdl_ckpt: str, config: dict | None = None,
-                 bdl_arch: dict | None = None, n_sample: int = N_SAMPLE,
-                 boundary_info: dict | None = None, *, device):
+    """``inject_modules=(fps_module, bdl_module)`` replaces the two built
+    models, and no checkpoint is read: any two objects with the stage
+    interface of ``models/tgnet.py:TGNet`` (``stage1(feats) -> {"sem_1",
+    "offset_1"}``, ``stage2(crops, mask) -> {"sem_1"}``), as the
+    whole-pipeline parity tests inject structured stand-in predictors. The
+    JAX package's tuple has four entries, each module beside its variables,
+    because a flax module holds no weights; a torch module carries its own,
+    so two entries say the same."""
+
+    def __init__(self, fps_ckpt: str | None, bdl_ckpt: str | None,
+                 config: dict | None = None, bdl_arch: dict | None = None,
+                 n_sample: int = N_SAMPLE, boundary_info: dict | None = None,
+                 inject_modules: tuple | None = None, *, device):
         use_full_fp32()
         self.device = torch.device(device)
         cfg = copy.deepcopy(config) if config else tgnet_fps_config()
@@ -110,12 +130,22 @@ class TgnInferencePipeline:
                 > self.boundary_info["num_of_all_points"]):
             raise ValueError("boundary_info: num_of_bdl_points must be <= "
                              f"num_of_all_points (got {self.boundary_info})")
-        self.fps_module = load_npz(fps_ckpt, build_tgnet_fps(
-            cfg, device=self.device)).eval()
-        self.bdl_module = load_npz(bdl_ckpt, build_tgnet_bdl(
-            self.crop_size, bdl_arch, device=self.device)).eval()
-        # per-phase wall seconds of the last completed call
+        if inject_modules is not None:
+            self.fps_module, self.bdl_module = inject_modules
+        else:
+            self.fps_module = load_npz(fps_ckpt, build_tgnet_fps(
+                cfg, device=self.device)).eval()
+            self.bdl_module = load_npz(bdl_ckpt, build_tgnet_bdl(
+                self.crop_size, bdl_arch, device=self.device)).eval()
+        # the weights were copied on the legacy default stream; run_many's
+        # streams do not wait for it
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # per-phase wall seconds of the last completed call (each call fills
+        # its own dict and publishes it here when it ends)
         self.timings: dict[str, float] = defaultdict(float)
+        self._pool: ProcessPoolExecutor | None = None
+        self._pool_size = 0
 
     @staticmethod
     def _t(timings: dict, name: str, t0: float) -> float:
@@ -132,12 +162,86 @@ class TgnInferencePipeline:
         return _device_votes(out["sem_1"], crop_idx[0], valid_np[0],
                              feats.shape[1]).cpu().numpy()
 
+    def run_many(self, stl_paths, workers: int = 3,
+                 prep_workers: int | None = None) -> list[dict]:
+        """Overlapped multi-scan inference: ``workers`` scans in flight, so
+        one scan's host phases (clustering, boundary resampling, fusion) run
+        while another's device stages occupy the card. On a CUDA device each
+        scan in flight runs on a CUDA stream of its own: on one shared
+        stream each scan's host fetch would wait for every other scan's
+        queued kernels. The mesh prep (obj parse, dedup, normals) can also
+        run ahead in ``prep_workers`` spawned worker processes, which import
+        only the numpy ``data.scan_prep`` and never touch the card.
+        ``prep_workers`` defaults to ``min(2, cpu_count - 1)``; 0 means
+        threads only. The pool persists across calls (``close()`` reaps
+        it). Returns the results in input order, each identical to a serial
+        call's; ``self.timings`` holds the last completed scan's. A scan
+        that raises makes this call raise."""
+        if prep_workers is None:
+            prep_workers = max(0, min(2, (os.cpu_count() or 1) - 1))
+        workers = max(1, workers)
+        # folds and kernel layouts are shared by every scan: made here, on
+        # this thread, and finished on the card before any worker reads them
+        for module in (self.fps_module, self.bdl_module):
+            prepare = getattr(module, "prepare_kernel_state", None)
+            if prepare is not None:
+                with torch.inference_mode():
+                    prepare()
+        streams: queue.SimpleQueue = queue.SimpleQueue()
+        for _ in range(workers):
+            streams.put(torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+        def one(path, prep=None):
+            stream = streams.get()
+            try:
+                with (torch.cuda.stream(stream) if stream is not None
+                      else nullcontext()):
+                    return self(path, _prep=None if prep is None
+                                else prep.result())
+            finally:
+                streams.put(stream)
+
+        preps = [None] * len(stl_paths)
+        if prep_workers > 0:
+            pool = self._prep_pool(prep_workers)
+            preps = [pool.submit(prep_scan_host_tgn, p, self.n_sample)
+                     for p in stl_paths]
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            return list(ex.map(one, stl_paths, preps))
+
+    def _prep_pool(self, prep_workers: int) -> ProcessPoolExecutor:
+        """The persistent spawn-context prep pool, warmed on first use (the
+        workers' imports happen then, not under a batch's timing) and kept
+        while its size holds."""
+        if self._pool is not None and self._pool_size == prep_workers:
+            return self._pool
+        self.close()
+        # spawn, not fork: a forked child would inherit the parent's CUDA
+        # state, which it cannot use
+        pool = ProcessPoolExecutor(prep_workers, mp_context=mp.get_context("spawn"))
+        list(pool.map(scan_prep.warm_worker, range(prep_workers)))
+        self._pool, self._pool_size = pool, prep_workers
+        return pool
+
+    def close(self) -> None:
+        """Reap the prep pool, if there is one."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool, self._pool_size = None, 0
+
     @torch.inference_mode()
-    def __call__(self, stl_path: str) -> dict:
+    def __call__(self, stl_path: str, _prep=None) -> dict:
+        """One scan; ``_prep``: its ``(org_feats, bdl_feats)`` from
+        ``prep_scan_host_tgn``, prepared ahead by ``run_many``'s prep
+        workers (the FPS sample on the device still runs here)."""
         timings: dict[str, float] = defaultdict(float)
         dev = self.device
         t0 = time.perf_counter()
-        org_feats, bdl_feats = prep_scan_host_tgn(stl_path, self.n_sample)
+        org_feats, bdl_feats = (prep_scan_host_tgn(stl_path, self.n_sample)
+                                if _prep is None else _prep)
         n_vertices = org_feats.shape[0]
         src = torch.from_numpy(bdl_feats).to(dev)
         if bdl_feats.shape[0] <= self.n_sample:

@@ -272,15 +272,20 @@ def get_clustering_labels(moved_points: np.ndarray, labels: np.ndarray):
         nn = np.atleast_2d(nn)
         if nn.ndim == 1:
             nn = nn[:, None]
-        votes = clustering_labels[~noise][nn]
-        mod = []
-        for row in votes:
-            u, c = np.unique(row, return_counts=True)
-            mod.append(u[np.argmax(c)])
-        clustering_labels[noise] = np.array(mod)
+        clustering_labels[noise] = _row_modes(clustering_labels[~noise][nn])
     elif noise.all():
         clustering_labels[:] = 0
     return clustering_labels
+
+
+def _row_modes(votes: np.ndarray) -> np.ndarray:
+    """Each row's most frequent value, the smallest one among ties
+    (``u[argmax(c)]`` of ``np.unique(row, return_counts=True)``), for all
+    rows at once: a per-row loop holds the GIL for each of ~10^4 noise
+    points, which stalls the other scans of ``run_many``."""
+    counts = (votes[:, :, None] == votes[:, None, :]).sum(axis=2)
+    top = counts == counts.max(axis=1, keepdims=True)
+    return np.where(top, votes, np.iinfo(votes.dtype).max).min(axis=1)
 
 
 def first_label_ratio(labels_arr: np.ndarray) -> np.ndarray:
