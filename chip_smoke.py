@@ -52,7 +52,15 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      in the cell and bfloat16 configurations: outputs identical to serial,
      launch counts equal, serial and overlapped scans per second, the
      phases' seconds a scan both ways, the busy share of one profiled batch,
-     the kernel library loaded once, no prep worker with CUDA initialised.
+     the kernel library loaded once, no prep worker with CUDA initialised;
+ 10. training: tgnet_fps at full width and batch 1 on labelled synthetic
+     24000-point arch cases: step 1's seven losses on the card against the
+     CPU port's, two seeded runs bit-identical, the loss falling over 8
+     steps on one batch, the step's median seconds with and without
+     deterministic algorithms, its peak memory and one profiled step; one
+     epoch through ``cli.train.main`` (K1 and K2 launched in the train
+     steps, K3 in the val pass), the checkpoint resumed and the exported
+     ``.npz`` serving one scan.
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -89,7 +97,12 @@ FPS_SHAPES = ((1, 24000, 6000, None),           # B, N, samples, valid points
 KNN_SHAPES = ((1, 24000, 24000, 36, True, False),   # B, M, N, k, self-query,
               (16, 3072, 3072, 36, True, False),    # spatially sorted
               (1, 6000, 24000, 24, False, False),
-              (1, 24000, 24000, 36, True, True))    # the first cloud, sorted
+              (1, 24000, 24000, 36, True, True),    # the first cloud, sorted
+              # training's CBL sub-scene labels: kr = 16 and 64 into the
+              # full-resolution cloud, and into the crops
+              (1, 375, 24000, 16, False, False),
+              (1, 93, 24000, 64, False, False),
+              (16, 48, 3072, 64, False, False))
 FPS_CHAIN = (24000, 16)   # K1's chain floor: steps, cluster size
 # K3: every (B, N, K, C) one scan gives it: the fps model's stage 1 and
 # its deeper stages (24000 -> 6000 -> 1500 -> 375 -> 93 points), its 16 crops
@@ -131,6 +144,14 @@ SERVE_SCANS = {"default": 6, "cell": 3, "bf16": 3}
 SERVE_WORKERS, SERVE_PREP = 3, 2
 # scans in flight swept on the default configuration's batch
 SERVE_SWEEP = (1, 2, 4)
+# the training phase: labelled 24000-point synthetic arch cases (two train,
+# one val) at full width and batch 1; a fixed batch's steps (the loss must
+# fall over them), the steps two seeded runs must repeat bit for bit, the
+# steps timed each way for the cost of deterministic algorithms
+TRAIN_CASES = (("TR00", "lower", 14), ("TR01", "upper", 12), ("TR02", "lower", 13))
+TRAIN_FALL_STEPS = 8
+TRAIN_REPEAT_STEPS = 3
+TRAIN_TIMED_STEPS = 4
 
 
 def log(phase: str, **fields) -> None:
@@ -746,7 +767,7 @@ def phase_model(dev, ckpt: Path, feats: np.ndarray, cell: bool = False,
             out = model.stage1(feat.to(d))
         if d.type == "cuda":
             torch.cuda.synchronize()
-        outs[name] = ({k: v.float().cpu() for k, v in out.items()},
+        outs[name] = ({k: out[k].float().cpu() for k in ("sem_1", "offset_1")},
                       time.perf_counter() - t0)
         if name == "cuda":
             launched = {k.__name__: k.launches for k in cell_kernels}
@@ -1034,6 +1055,227 @@ def phase_serve_many(pipes: dict, work: Path, kernels) -> None:
         raise AssertionError(f"kernel library loaded {build.build_info['loads']} times")
 
 
+def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
+    """tgnet_fps training at full width (planes 32..512, 24000 points, 16
+    crops of 3072, batch 1, the SGD preset and its seven loss weights) on
+    labelled synthetic arch cases (``TRAIN_CASES``):
+
+      * step 1's seven losses on the card equal the CPU port's (the same
+        flax-like initial weights from one seed, the same batch) within 1e-3
+        relative, with the CPU step's seconds;
+      * one epoch through ``cli.train.main`` (two train steps, one val
+        pass), every count set to 0 just before: K1 and K2 launched; then
+        another train epoch (K1 and K2 in its steps, K3 in none: training
+        runs the unfused attention) and a val pass (K3 launched);
+      * the checkpoint resumes (epoch and every tensor), the exported .npz
+        serves one scan through ``TgnInferencePipeline``;
+      * two seeded runs bit-identical after ``TRAIN_REPEAT_STEPS`` steps
+        (losses, parameters, BatchNorm statistics), the loss falling over
+        ``TRAIN_FALL_STEPS`` steps on one batch, every loss finite;
+      * the median step seconds with and without deterministic algorithms,
+        the peak memory of a step and one profiled step (busy share, top
+        kernels).
+
+    Returns K1-K3's launches per train step and per val scan."""
+    from synthetic import write_processed_npy
+
+    from toothgroupnetwork_tpu_torch.cli import train as cli_train
+    from toothgroupnetwork_tpu_torch.data import DentalScanDataset
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.ops.kernels import attention, fps, knn
+    from toothgroupnetwork_tpu_torch.pipelines import (ScanSegmentation,
+                                                       make_inference_pipeline)
+    from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.train.checkpoints import save_weights
+    from toothgroupnetwork_tpu_torch.train.trainer import Trainer
+    from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
+
+    data = work / "train_data"
+    for i, (case, jaw, teeth) in enumerate(TRAIN_CASES):
+        write_processed_npy(str(data), case, jaw, n_points=N_POINTS, n_teeth=teeth,
+                            seed=20 + i)
+    (work / "train.txt").write_text("TR00\nTR01\n")
+    (work / "val.txt").write_text("TR02\n")
+    task = get_task("tgnet_fps")
+    cfg = task.default_config()
+    kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x,
+               attention.project_kv)
+
+    def counts():
+        return {k.__name__: k.launches for k in kernels}
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+
+    def fresh(device):
+        model = task.build_module(cfg, device=device)
+        init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
+        return model, make_optimizer(cfg.optimizer, model.parameters())
+
+    item = DentalScanDataset(str(data))[0]
+    batch = {k: torch.from_numpy(item[k][None]) for k in ("feat", "gt_seg_label", "mask")}
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+
+    def run(steps, model=None, opt=None, deterministic=True):
+        if model is None:
+            model, opt = fresh(dev)
+        losses, secs = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals = train_step(model, opt, task, cfg, on_card, deterministic)
+            losses.append({k: float(v) for k, v in vals.items()})
+            secs.append(time.perf_counter() - t0)
+        return model, opt, losses, secs
+
+    # step 1 on the card against the CPU port, from the same weights
+    model_a, opt_a, losses_a, secs_a = run(TRAIN_REPEAT_STEPS)
+    model_c, opt_c = fresh(torch.device("cpu"))
+    t0 = time.perf_counter()
+    cpu = {k: float(v) for k, v in train_step(model_c, opt_c, task, cfg, batch).items()}
+    cpu_s = time.perf_counter() - t0
+    del model_c, opt_c
+    rel = {k: abs(losses_a[0][k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    log("train_step1", what="card vs CPU port, step 1", card=losses_a[0], cpu=cpu,
+        rel_diff=rel, cpu_step_s=cpu_s, card_step_s=secs_a[0])
+    if len(cpu) != 7 or max(rel.values()) > 1e-3:
+        raise AssertionError(f"train step 1: card vs CPU relative differences {rel}")
+
+    # two seeded runs, bit for bit
+    model_b, _, losses_b, _ = run(TRAIN_REPEAT_STEPS)
+    same = losses_a == losses_b and all(
+        torch.equal(a, b) for a, b in zip(model_a.state_dict().values(),
+                                          model_b.state_dict().values()))
+    log("train_repeat", steps=TRAIN_REPEAT_STEPS, identical=same)
+    if not same:
+        raise AssertionError("two seeded training runs differ")
+    del model_b
+
+    # the loss falls on one fixed batch; every loss finite
+    _, _, more, secs_more = run(TRAIN_FALL_STEPS - TRAIN_REPEAT_STEPS, model_a, opt_a)
+    totals = [sum(v * cfg.loss_weights[k] for k, v in ls.items())
+              for ls in losses_a + more]
+    log("train_fall", steps=len(totals), total_loss=totals)
+    if not all(np.isfinite(list(ls.values())).all() for ls in losses_a + more):
+        raise AssertionError(f"non-finite training losses: {losses_a + more}")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"the loss did not fall over {len(totals)} steps: {totals}")
+
+    # step seconds with and without deterministic algorithms, peak memory,
+    # one profiled step
+    timed = {}
+    for det in (True, False, True):
+        _, _, _, secs = run(TRAIN_TIMED_STEPS, model_a, opt_a, deterministic=det)
+        timed.setdefault(det, []).extend(secs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run(1, model_a, opt_a)
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = {det: float(np.median(v)) for det, v in timed.items()}
+    log("train_time", deterministic_step_s=med[True], nondeterministic_step_s=med[False],
+        determinism_cost=med[True] / med[False] - 1.0, steps_each=len(timed[True]),
+        peak_memory_gib=peak / 2 ** 30, first_step_s=secs_a[0])
+    log("train_phases", what="one step, each phase ended by a synchronise",
+        phase_s=step_phases(model_a, opt_a, task, cfg, on_card))
+    profile_call(lambda: run(1, model_a, opt_a), "train step")
+    del model_a, opt_a
+
+    # the main path: one epoch through the CLI
+    ckpt = work / "train_ckpt" / "fps"
+    argv = ["--model_name", "tgnet_fps", "--input_data_dir_path", str(data),
+            "--train_data_split_txt_path", str(work / "train.txt"),
+            "--val_data_split_txt_path", str(work / "val.txt"),
+            "--checkpoint_path", str(ckpt), "--max_epochs", "1", "--device", str(dev)]
+    zero()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    main_counts = counts()
+    log("train_cli", epochs=trainer.epoch, steps=trainer.step, wall_s=main_s,
+        best_val=trainer.best_val, launches=main_counts)
+    if not (main_counts["fps"] and main_counts["knn_select"]
+            and main_counts["fused_vector_attention_packed_x"]):
+        raise AssertionError(f"cli.train: kernels not launched {main_counts}")
+    if not np.isfinite(trainer.best_val):
+        raise AssertionError(f"cli.train: val loss {trainer.best_val}")
+
+    # the checkpoint resumes: epoch and every tensor
+    resumed = Trainer(trainer.config, task, [], [], log_fn=lambda s: None, device=dev)
+    epoch = resumed.resume()
+    equal = all(torch.equal(a, b) for a, b in zip(
+        resumed.model.state_dict().values(), trainer.model.state_dict().values()))
+    log("train_resume", epoch=epoch, step=resumed.step, identical=equal)
+    if epoch != 1 or resumed.step != trainer.step or not equal:
+        raise AssertionError(f"resume: epoch {epoch}, step {resumed.step}, "
+                             f"tensors equal {equal}")
+    del resumed
+
+    # launches a train step (no K3) and a val scan (K3)
+    zero()
+    step0 = trainer.step
+    train_stats = trainer.train_epoch()
+    per_step = {k: v / (trainer.step - step0) for k, v in counts().items()}
+    zero()
+    val_stats = trainer.eval_epoch()
+    n_val = len(trainer.val_loader.dataset)
+    per_val = {k: v / n_val for k, v in counts().items()}
+    log("train_launches", per_train_step=per_step, per_val_scan=per_val,
+        train=train_stats, val=val_stats)
+    if not (per_step["fps"] and per_step["knn_select"]) \
+            or per_step["fused_vector_attention_packed_x"]:
+        raise AssertionError(f"train steps launched {per_step}")
+    if not per_val["fused_vector_attention_packed_x"]:
+        raise AssertionError(f"val pass launched {per_val}")
+
+    # the exported weights serve a scan
+    npz = work / "trained_fps.npz"
+    save_weights(str(npz), trainer.model)
+    pipe = make_inference_pipeline("tgnet", [str(npz), str(ckpts["bdl"])], None,
+                                   device=dev)
+    labels, ins, _ = ScanSegmentation(pipe).predict([str(scan)])
+    n_vert = sum(1 for line in scan.open() if line.startswith("v "))
+    log("train_serve", scan=scan.name, vertices=n_vert, labels=sorted(set(labels)),
+        instances=len(set(ins)))
+    if len(labels) != n_vert or not set(labels) <= FDI:
+        raise AssertionError(f"trained weights: {len(labels)} labels for {n_vert} "
+                             "vertices, or labels outside the FDI set")
+    pipe.close()
+    return {"per_train_step": per_step, "per_val_scan": per_val}
+
+
+def step_phases(model, opt, task, cfg, batch) -> dict:
+    """The seconds of one train step's phases, as ``train_step`` runs them
+    (deterministic algorithms on), each ended by a synchronise: the
+    forward (stage 1, the crops, stage 2), the seven losses, the backward
+    and the optimizer's update."""
+    from toothgroupnetwork_tpu_torch.train.loss_meter import LossMap
+    from toothgroupnetwork_tpu_torch.train.trainer import (deterministic_algorithms,
+                                                           zero_missing_grads)
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    model.train()
+    marks = []
+    mark("start")
+    with deterministic_algorithms():
+        out = model(batch["feat"], batch["mask"], **task.forward_kwargs(batch))
+        mark("forward")
+        losses = task.compute_losses(out, batch, cfg)
+        total = LossMap(losses).get_sum()
+        mark("losses")
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        mark("backward")
+        zero_missing_grads(opt)
+        opt.step()
+        mark("optimizer")
+    return {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+
+
 def short(kernel_name: str) -> str:
     """A device kernel's name without namespaces and arguments, template
     arguments kept (the two attention entries differ only there)."""
@@ -1042,6 +1284,9 @@ def short(kernel_name: str) -> str:
 
 
 def main() -> int:
+    # before the first cuBLAS call: deterministic training steps need a
+    # fixed cuBLAS workspace (the size torch picks on Hopper anyway)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1123,6 +1368,7 @@ def main() -> int:
         phase_ab(pipes, scans[0])
         entry_launches = phase_entries(dev, feats0)
         phase_serve_many(pipes, work, base + cell + entry)
+        train = phase_train(dev, work, ckpts, scans[0])
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
@@ -1131,6 +1377,9 @@ def main() -> int:
         name = k.__name__
         rec.entry["launches"] = (launches if k in base else slice_launches["cell"]
                                  if k in cell else entry_launches)[name]
+        # training (phase 10): K1-K3 a train step and a val scan
+        rec.entry["train_launches_per_step"] = train["per_train_step"].get(name, 0)
+        rec.entry["val_launches_per_scan"] = train["per_val_scan"].get(name, 0)
     # each K3 shape with its launches a scan, per configuration
     for row in records[2].entry["shapes"]:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)

@@ -9,6 +9,8 @@ Without a card every test skips (the kernels have no CPU mode); the twins are
 held to the JAX package by tests/test_torch_port_ops.py.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,11 @@ from toothgroupnetwork_tpu_torch.ops import cells, knn_self
 from toothgroupnetwork_tpu_torch.ops.kernels import (attention, cell_select, fps,
                                                      gather, knn)
 from toothgroupnetwork_tpu_torch.utils.weights import randomize_
+
+# the deterministic train steps of TestTrainingOnCard need a fixed cuBLAS
+# workspace before the test run's first cuBLAS call (the size torch picks on
+# Hopper anyway, so the other tests run as before)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -532,3 +539,115 @@ class TestConcurrentLaunchesOnCard:
                     assert _within_one_bf16_ulp(got_a, ref_a)
                 else:
                     assert (got_a - ref_a).abs().max().item() <= 1e-4
+
+    def test_threads_at_different_shared_memory_sizes(self, cuda_device, gen):
+        """Scans in flight are at different layers at once, so one kernel is
+        launched with different dynamic shared memory from several threads:
+        four threads, each at a K3 width of the main path and a K1 cloud
+        size of its own, launch many times, released together. Every launch
+        succeeds and equals its twin, and the counts are exact."""
+        from concurrent.futures import ThreadPoolExecutor
+        from threading import Barrier
+
+        reps = 40
+        cases = [MAIN_PATH_K3[i] for i in (0, 2, 3, 4)]
+        clouds = [(1, 24000, 600), (16, 3072, 768), (1, 6000, 1500), (3, 2000, 300)]
+        inputs = []
+        for (b, n, kk, c), (fb, fn, fm) in zip(cases, clouds):
+            layer = PointTransformerLayer(c, device=cuda_device)
+            randomize_(layer, torch.Generator().manual_seed(c))
+            p = _cloud(gen, b, n, 3, device=cuda_device)
+            x = _cloud(gen, b, n, c, device=cuda_device) * 0.5
+            with torch.no_grad():
+                q = layer.linear_q(x).reshape(b * n, c).contiguous()
+            params = layer.kernel_params()
+            attention.prepare_layouts(params, torch.float32, cuda_device)
+            inputs.append((p, x, q, _knn_idx(gen, b, n, kk, cuda_device), params,
+                           _cloud(gen, fb, fn, 3, device=cuda_device), fm))
+        torch.cuda.synchronize()
+        kernels = (fps.fps, attention.fused_vector_attention_packed_x)
+        for k in kernels:
+            k.launches = 0
+        barrier = Barrier(len(inputs))
+
+        def work(i):
+            p, x, q, idx, params, xyz, m = inputs[i]
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.stream(stream), torch.no_grad():
+                barrier.wait()
+                outs = [(fps.fps(xyz, m),
+                         attention.fused_vector_attention_packed_x(x, p, idx, q, params))
+                        for _ in range(reps)]
+            stream.synchronize()
+            return outs
+
+        with ThreadPoolExecutor(len(inputs)) as ex:
+            results = list(ex.map(work, range(len(inputs))))
+        torch.cuda.synchronize()
+        assert [k.launches for k in kernels] == [len(inputs) * reps] * 2
+        for (p, x, q, idx, params, xyz, m), outs in zip(inputs, results):
+            ref_f = fps.fps_reference(xyz, m)
+            with torch.no_grad():
+                ref_a = attention.fused_vector_attention_packed_x_reference(
+                    x, p, idx, q, params)
+            for got_f, got_a in outs:
+                assert torch.equal(got_f, ref_f)
+                assert (got_a - ref_a).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+class TestTrainingOnCard:
+    """The tgnet_fps train step on the card at the tiny config of
+    tests/test_torch_port_train_step.py (planes [8, 16], stride [1, 4], 16
+    crops of 32 over 256 points)."""
+
+    ARCH = {"planes": [8, 16], "stride": [1, 4], "nsample": [8, 8],
+            "blocks": [2, 2], "block_num": 2, "crop_sample_size": 32}
+
+    def _run(self, device, batch, steps=3):
+        from toothgroupnetwork_tpu_torch.models import get_task
+        from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+        from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
+
+        task = get_task("tgnet_fps")
+        cfg = task.default_config()
+        cfg.model_parameter.update(self.ARCH)
+        cfg.optimizer.lr = 1e-2
+        model = task.build_module(cfg, device=device)
+        init_like_flax_(model, torch.Generator().manual_seed(0))
+        opt = make_optimizer(cfg.optimizer, model.parameters())
+        on = {k: v.to(device) for k, v in batch.items()}
+        losses = [{k: float(v) for k, v in train_step(model, opt, task, cfg, on).items()}
+                  for _ in range(steps)]
+        return model, losses
+
+    def test_steps_match_the_cpu_and_repeat(self, cuda_device, gen):
+        """Three steps on the card: each loss within 1e-4 relative of the CPU
+        port's, K1 and K2 launched and K3 not (training runs the unfused
+        attention), and a second seeded run bit-identical (losses,
+        parameters, BatchNorm statistics)."""
+        from synthetic import make_synthetic_jaw_points
+
+        pts, _, cls = make_synthetic_jaw_points(240, 6, seed=1)
+        feat = np.zeros((1, 256, 6), np.float32)
+        feat[0, :240, :3] = pts
+        feat[0, :240, 5] = 1.0
+        labels = np.full((1, 256), -1, np.int32)
+        labels[0, :240] = cls - 1
+        batch = {"feat": torch.from_numpy(feat),
+                 "gt_seg_label": torch.from_numpy(labels),
+                 "mask": torch.from_numpy(np.arange(256)[None] < 240)}
+        kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x)
+        for k in kernels:
+            k.launches = 0
+        model_a, card = self._run(cuda_device, batch)
+        assert [k.launches > 0 for k in kernels] == [True, True, False]
+        _, cpu = self._run(torch.device("cpu"), batch)
+        for got, want in zip(card, cpu):
+            for key, val in want.items():
+                assert got[key] == pytest.approx(val, rel=1e-4), key
+        model_b, again = self._run(cuda_device, batch)
+        assert again == card
+        for (name, a), b in zip(model_a.state_dict().items(),
+                                model_b.state_dict().values()):
+            assert torch.equal(a, b), name

@@ -12,17 +12,8 @@ import json
 import os
 from glob import glob
 
-import torch
-
 from ..pipelines import ScanSegmentation, make_inference_pipeline
-
-
-def resolve_device(name: str) -> torch.device:
-    """The named device; raises if it is a CUDA device and there is no card."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return device
+from ..utils.device import resolve_device
 
 
 def main(argv=None):

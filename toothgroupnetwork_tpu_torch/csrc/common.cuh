@@ -50,7 +50,12 @@ inline int copy_unit(size_t row_bytes, const void* src, const void* dst) {
 
 // Launch `kernel` as B clusters of `c` CTAs (1 <= c <= 16; dynamic shared
 // memory `smem` a CTA) after cudaOccupancyMaxActiveClusters finds room for
-// one; a refused size or launch is returned as its error.
+// one; a refused size or launch is returned as its error. The kernel's
+// dynamic shared memory limit is set to the most the device lets it opt
+// into (the opt-in maximum less its static shared memory), the same value
+// at every launch: launches of one kernel with different `smem` from
+// several host threads (one scan a thread) then never lower the limit under
+// another thread's launch.
 template <typename... Params, typename... Args>
 int launch_clusters(void (*kernel)(Params...), int b, int c, int threads,
                     size_t smem, cudaStream_t stream, Args&&... args) {
@@ -58,8 +63,18 @@ int launch_clusters(void (*kernel)(Params...), int b, int c, int threads,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
+    int device = 0, optin = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return (int)err;
+    const int smem_max = optin - (int)fa.sharedSizeBytes;
+    if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               smem_max);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;

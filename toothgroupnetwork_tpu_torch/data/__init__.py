@@ -1,9 +1,14 @@
-"""Host data layer of the port: .obj parsing, vertex normals and the tgn
-inference scan prep (numpy only; counterpart of the parts of
-toothgroupnetwork_tpu/data/ that the inference pipeline uses)."""
+"""Host data layer of the port: .obj parsing, vertex normals, the tgn
+inference scan prep, and the training dataset, batching and augmentation
+(numpy only; counterpart of the parts of toothgroupnetwork_tpu/data/ that
+the inference pipeline and training use)."""
 
+from .augment import Augmentator, build_augmenter
+from .dataset import BatchLoader, DentalScanDataset, collate_batch
 from .mesh_io import compute_vertex_normals, parse_obj, subdivide_midpoint
 from .scan_prep import N_SAMPLE, prep_scan_host_tgn
 
-__all__ = ["N_SAMPLE", "compute_vertex_normals", "parse_obj",
-           "prep_scan_host_tgn", "subdivide_midpoint"]
+__all__ = ["Augmentator", "BatchLoader", "DentalScanDataset", "N_SAMPLE",
+           "build_augmenter", "collate_batch", "compute_vertex_normals",
+           "parse_obj", "prep_scan_host_tgn",
+           "subdivide_midpoint"]

@@ -1,4 +1,4 @@
-"""Point-Transformer segmentation backbone, eval forward (counterpart of
+"""Point-Transformer segmentation backbone (counterpart of
 toothgroupnetwork_tpu/models/point_transformer/backbone.py).
 
 Dense padded ``[B, N, C]`` tensors with per-stage static sizes (24000 -> 6000
@@ -9,9 +9,17 @@ mechanically (utils/weights.py). Structure kept from the JAX package:
   * a stride-1 stage with a no-larger k reuses the previous stage's kNN
     k-prefix (exact kNN lists are ascending),
   * a stride-1 TransitionUp and a stride-1 head upsample are the identity,
-  * every attention layer runs the fused kernel K3 (ops/kernels/attention.py),
-    which computes the relative positions from ``p`` and the kNN indices
-    itself (the JAX package hoists that gather per stage),
+  * in eval mode every attention layer runs the fused kernel K3
+    (ops/kernels/attention.py), which computes the relative positions from
+    ``p`` and the kNN indices itself (the JAX package hoists that gather per
+    stage),
+  * in train mode every BatchNorm takes batch statistics over the points
+    its mask keeps (the neighbourhood BNs over the flattened ``[B*N*K]``
+    mask) and each attention layer runs the JAX package's unfused graph
+    (its ``xla`` mode, the one it always trains through) in torch ops under
+    autograd, over relative positions gathered once per stage; no kernel
+    has a backward, as no Pallas kernel has one. The modules are built in
+    eval mode (the serving path); ``train()`` selects the train forward,
   * with ``cell_attention`` (eval, B == 1, N % 8 == 0, points still in the
     caller's spatially sorted order; ``TGN_TPU_CELLS=off`` turns it off, as
     in the JAX package) a stage builds a super-row candidate context instead
@@ -72,6 +80,7 @@ class PointTransformerLayer(nn.Module):
         self.linear_w_bn1 = MaskedBatchNorm(cs, **kw)
         self.linear_w1 = Dense(cs, cs, **kw)
         self._folded, self._folded_key = None, None
+        self.eval()
 
     def kernel_params(self) -> dict:
         """``fold_attention_params(self, self.dtype)``, folded once and kept
@@ -98,10 +107,14 @@ class PointTransformerLayer(nn.Module):
                 self._folded, self._folded_key = folded, key
             return self._folded
 
-    def forward(self, p, x, knn_idx, cell=None):
+    def forward(self, p, x, knn_idx, cell=None, mask=None, p_r=None):
         """``cell``: the stage's ``(cand, pos, p_r)`` candidate context
         (B == 1, p_r in the model dtype), or None for the fused-gather
-        kernel K3."""
+        kernel K3. In train mode: ``mask`` ``[B, N]`` (or None) and the
+        stage's relative positions ``p_r`` ``[B*N*K, 3]``, and the unfused
+        graph runs (:meth:`train_forward`)."""
+        if self.training:
+            return self.train_forward(x, knn_idx, mask, p_r)
         b, n, kk = knn_idx.shape
         q = self.linear_q(x).reshape(b * n, -1).contiguous()
         params = self.kernel_params()
@@ -116,6 +129,32 @@ class PointTransformerLayer(nn.Module):
             agg = fused_vector_attention(q.float(), x_g.reshape(b * n * kk, -1),
                                          p_r, params, k=kk).to(self.dtype)
         return agg.reshape(b, n, -1)
+
+    def train_forward(self, x, knn_idx, mask, p_r):
+        """The JAX layer's ``xla`` branch (backbone.py:196-230): gather the
+        raw rows, project k/v after the gather, the positional and weight
+        MLPs with their BatchNorms over the flattened neighbourhood mask, a
+        softmax over the K neighbours per channel group, and the weighted
+        sum over K in float32."""
+        b, n, kk = knn_idx.shape
+        bn_, bnk = b * n, b * n * kk
+        q = self.linear_q(x)
+        x_g = index_points(x, knn_idx).reshape(bnk, -1)
+        k_g, v_g = self.linear_k(x_g), self.linear_v(x_g)
+        flat_mask = None
+        if mask is not None:
+            flat_mask = mask[..., None].expand(b, n, kk).reshape(-1)
+        pe = self.linear_p0(p_r)
+        pe = self.linear_p1(torch.relu(self.linear_p_bn(pe, flat_mask)))
+        w = (k_g.reshape(bn_, kk, -1) - q.reshape(bn_, 1, -1)
+             + pe.reshape(bn_, kk, -1)).reshape(bnk, -1)
+        w = self.linear_w0(torch.relu(self.linear_w_bn0(w, flat_mask)))
+        w = self.linear_w1(torch.relu(self.linear_w_bn1(w, flat_mask)))
+        w3 = torch.softmax(w.reshape(bn_, kk, -1), dim=1)
+        # channel c takes the weight of its group c % (C / share_planes)
+        w_full = w3.repeat(1, 1, v_g.shape[-1] // w3.shape[-1])
+        prod = (v_g + pe).reshape(bn_, kk, -1) * w_full
+        return prod.float().sum(dim=1).reshape(b, n, -1).to(self.dtype)
 
 
 class PointTransformerBlock(nn.Module):
@@ -133,10 +172,11 @@ class PointTransformerBlock(nn.Module):
         self.linear3 = Dense(planes, planes, bias=False, **kw)
         self.bn3 = MaskedBatchNorm(planes, **kw)
 
-    def forward(self, p, x, knn_idx, cell=None):
-        h = torch.relu(self.bn1(self.linear1(x)))
-        h = torch.relu(self.bn2(self.transformer(p, h, knn_idx, cell)))
-        h = self.bn3(self.linear3(h))
+    def forward(self, p, x, knn_idx, cell=None, mask=None, p_r=None):
+        h = torch.relu(self.bn1(self.linear1(x), mask))
+        h = torch.relu(self.bn2(self.transformer(p, h, knn_idx, cell, mask, p_r),
+                                mask))
+        h = self.bn3(self.linear3(h), mask)
         return torch.relu(h + x.to(self.dtype))
 
 
@@ -154,7 +194,7 @@ class TransitionDown(nn.Module):
 
     def forward(self, p, x, mask=None):
         if self.stride == 1:
-            return p, torch.relu(self.bn(self.linear(x))), mask
+            return p, torch.relu(self.bn(self.linear(x), mask)), mask
         m = x.shape[1] // self.stride
         fps_idx = farthest_point_sample(p, m, mask)
         new_p = index_points(p, fps_idx)
@@ -167,7 +207,10 @@ class TransitionDown(nn.Module):
         # float32 and the Dense casts it, as in the JAX package
         grouped = torch.cat([index_points(p, idx) - new_p[:, :, None, :],
                              index_points(x, idx)], dim=-1)
-        h = torch.relu(self.bn(self.linear(grouped)))
+        flat_mask = None
+        if new_mask is not None:
+            flat_mask = new_mask[..., None].expand(idx.shape)
+        h = torch.relu(self.bn(self.linear(grouped), flat_mask))
         return new_p, h.amax(dim=2), new_mask
 
 
@@ -196,9 +239,9 @@ class TransitionUp(nn.Module):
             g = torch.relu(self.linear2(masked_mean(x1, mask1, dim=1)))
             h = torch.cat([x1.to(self.dtype),
                            g[:, None, :].expand(-1, x1.shape[1], -1)], dim=-1)
-            return torch.relu(self.bn1(self.linear1(h)))
-        a = torch.relu(self.bn1(self.linear1(x1)))
-        b = torch.relu(self.bn2(self.linear2(x2)))
+            return torch.relu(self.bn1(self.linear1(h), mask1))
+        a = torch.relu(self.bn1(self.linear1(x1), mask1))
+        b = torch.relu(self.bn2(self.linear2(x2), mask2))
         # stride-1 lateral: 3-NN inverse-distance interpolation onto the same
         # point set is the identity; the interpolation itself is float32
         up = b if p1 is p2 else knn_interpolate(p1, p2, b, 3, mask1, mask2)
@@ -214,13 +257,14 @@ class StageMLP(nn.Module):
         self.dense = Dense(din, base_fdim, device=device, dtype=dtype)
         self.bn = MaskedBatchNorm(base_fdim, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return torch.relu(self.bn(self.dense(x)))
+    def forward(self, x, mask=None):
+        return torch.relu(self.bn(self.dense(x), mask))
 
 
 class MultiHead(nn.Module):
     """Per-stage latent MLPs -> 1-NN upsample to full resolution -> concat ->
-    Linear(k), the last in float32 whatever the model dtype."""
+    Linear(k), the last in float32 whatever the model dtype. Returns the
+    logits and the per-stage latents."""
 
     def __init__(self, k: int, planes: Sequence[int], base_fdim: int = 32, *,
                  device, dtype: torch.dtype = torch.float32):
@@ -231,16 +275,22 @@ class MultiHead(nn.Module):
                                                    dtype=dtype))
         self.cls = Dense(base_fdim * len(planes), k, device=device)
 
-    def forward(self, stage_x, up1_idx):
-        collect = []
-        for i, x in enumerate(stage_x):
-            lat = getattr(self, f"stage_{i}")(x)
+    def forward(self, stage_x, up1_idx, masks):
+        collect, latents = [], []
+        for i, (x, mask) in enumerate(zip(stage_x, masks)):
+            lat = getattr(self, f"stage_{i}")(x, mask)
+            latents.append(lat)
             collect.append(lat if i == 0 else index_points(lat, up1_idx[i]))
-        return self.cls(torch.cat(collect, dim=-1))
+        return self.cls(torch.cat(collect, dim=-1)), latents
 
 
 class PointTransformerSeg(nn.Module):
-    """The U-Net. ``forward`` returns ``{"sem_1": [B, N, k], "offset_1": [B, N, 3]}``."""
+    """The U-Net. ``forward`` returns the JAX module's dict: ``sem_1`` (and
+    the same tensor as ``cls_pred``) ``[B, N, k]``, ``offset_1`` ``[B, N, 3]``,
+    ``embed`` (the full-resolution decoder features ``[B, N, planes[0]]``)
+    and ``cbl_stages``, one dict per up-stage with its points ``p``, the
+    offset head's float32 ``latent``, ``mask`` and ``knn_idx`` (what the CBL
+    loss reads)."""
 
     def __init__(self, k: int, c: int = 6,
                  planes: Sequence[int] = (32, 64, 128, 256, 512),
@@ -277,6 +327,7 @@ class PointTransformerSeg(nn.Module):
                 planes[i], share_planes, **kw))
         self.cls_head = MultiHead(k, planes[:bn], base_fdim, **kw)
         self.offset_head = MultiHead(3, planes[:bn], base_fdim, **kw)
+        self.eval()
 
     def prepare_kernel_state(self) -> None:
         """Fold every attention layer's parameters and, on a CUDA device,
@@ -321,7 +372,12 @@ class PointTransformerSeg(nn.Module):
             else:
                 knn_idx, _ = knn_self(p, self.nsample[i], mask)
             ctx = self._cell_ctx(p, knn_idx) if sorted_chain else None
-            cell = None
+            cell = p_r = None
+            if self.training:
+                # relative positions gathered once per stage, for every
+                # block of it (encoder and decoder)
+                p_r = ((index_points(p, knn_idx) - p[:, :, None, :])
+                       .reshape(-1, 3).to(self.dtype))
             if ctx is not None:
                 prev = stages[i - 1]["cell"] if reuse else None
                 if prev is not None:
@@ -335,14 +391,15 @@ class PointTransformerSeg(nn.Module):
                                         ctx[1], p[0]).reshape(-1, 3).to(self.dtype)
                 cell = (*ctx, p_r)
             for j in range(1, self.blocks[i]):
-                x = getattr(self, f"enc{i + 1}_block{j}")(p, x, knn_idx, cell)
+                x = getattr(self, f"enc{i + 1}_block{j}")(p, x, knn_idx, cell,
+                                                          mask, p_r)
             stages.append({"p": p, "x": x, "mask": mask, "knn_idx": knn_idx,
-                           "cell": cell})
+                           "cell": cell, "p_r": p_r})
 
         top = stages[bn - 1]
         x = getattr(self, f"dec{bn}_up")(top["p"], top["x"], top["mask"])
         x = getattr(self, f"dec{bn}_block1")(top["p"], x, top["knn_idx"],
-                                             top["cell"])
+                                             top["cell"], top["mask"], top["p_r"])
         up_x = [None] * bn
         up_x[bn - 1] = x
         for i in range(bn - 2, -1, -1):
@@ -350,7 +407,8 @@ class PointTransformerSeg(nn.Module):
             x = getattr(self, f"dec{i + 1}_up")(lo["p"], lo["x"], lo["mask"],
                                                 hi["p"], up_x[i + 1], hi["mask"])
             x = getattr(self, f"dec{i + 1}_block1")(lo["p"], x, lo["knn_idx"],
-                                                    lo["cell"])
+                                                    lo["cell"], lo["mask"],
+                                                    lo["p_r"])
             up_x[i] = x
 
         # 1-NN upsample indices shared by both heads; a stage that kept the
@@ -365,5 +423,10 @@ class PointTransformerSeg(nn.Module):
                 idx, _ = knn_points(p0, stages[i]["p"], 1, m0, stages[i]["mask"],
                                     need_dist=False)
                 up1_idx.append(idx[..., 0])
-        return {"sem_1": self.cls_head(up_x, up1_idx),
-                "offset_1": self.offset_head(up_x, up1_idx)}
+        masks = [st["mask"] for st in stages]
+        sem, _ = self.cls_head(up_x, up1_idx, masks)
+        offset, latents = self.offset_head(up_x, up1_idx, masks)
+        cbl_stages = [{"p": st["p"], "latent": lat.float(), "mask": st["mask"],
+                       "knn_idx": st["knn_idx"]} for st, lat in zip(stages, latents)]
+        return {"sem_1": sem, "cls_pred": sem, "offset_1": offset,
+                "embed": up_x[0], "cbl_stages": cbl_stages}

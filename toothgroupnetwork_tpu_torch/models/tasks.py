@@ -1,6 +1,7 @@
-"""tgnet model presets (counterpart of the tgnet parts of
-toothgroupnetwork_tpu/models/tasks.py). Configs are plain dicts: the JAX
-package's TrainConfig cannot be imported without JAX."""
+"""tgnet model presets and the tgnet_fps training task (counterpart of the
+tgnet parts of toothgroupnetwork_tpu/models/tasks.py). The constructors take
+plain dicts with a ``model_parameter``; the task's preset is the port's
+``TrainConfig`` (train/config.py)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,11 @@ import copy
 
 import torch
 
-from .tgnet import TGNet
+from ..losses import (batch_center_offset_loss, batch_chamfer_distance_loss,
+                      cbl_loss, tooth_class_loss)
+from ..train.config import OptimizerConfig, SchedulerConfig, TrainConfig
+from .registry import ModelTask, register_task
+from .tgnet import TGNet, binary_crop_labels, half_arch_labels
 
 # model_parameter["dtype"] -> the backbone's compute dtype (tasks.py:
 # _pt_backbone_params); parameters, geometry and logits stay float32
@@ -63,3 +68,69 @@ def build_tgnet_bdl(crop_size: int, arch: dict | None = None, *, device) -> TGNe
     JAX pipeline, only the fps model takes ``model_parameter["dtype"]``)."""
     return TGNet(crop_size=crop_size, c=6, **dict(arch or TGNET_BDL_ARCH),
                  device=device)
+
+
+# ---------------------------------------------------------------------------
+# tgnet_fps training (train_configs/tgnet_fps.py)
+# ---------------------------------------------------------------------------
+
+def _tgnet_losses(outputs, batch, config: TrainConfig) -> dict:
+    """The seven weighted losses of the fps model: half-arch CE of stage 1,
+    the crops' FG/BG CE, the offset and direction terms, the chamfer ratio
+    and the CBL of both stages."""
+    gt = batch["gt_seg_label"]
+    mask = batch.get("mask")
+    xyz = batch["feat"][..., :3]
+    stride = tuple(config.model_parameter.get("stride", (1, 4, 4, 4, 4)))
+    w = config.loss_weights
+
+    half = half_arch_labels(gt)
+    crop_gt = binary_crop_labels(outputs["cluster_gt_seg_label"])
+
+    l1 = tooth_class_loss(outputs["sem_1"], half, 10, mask)
+    l2 = tooth_class_loss(outputs["sem_2"], crop_gt, 2, outputs["crop_mask"])
+    off_loss, dir_loss = batch_center_offset_loss(outputs["offset_1"], xyz, gt, mask)
+    chamf = batch_chamfer_distance_loss(outputs["offset_1"], xyz, gt, mask)
+    cbl1 = cbl_loss(outputs["cbl_stages_1"], half, 10, stride)
+    cbl2 = cbl_loss(outputs["cbl_stages_2"], crop_gt, 2, stride)
+
+    return {
+        "tooth_class_loss_1": (l1, w.get("tooth_class_loss_1", 1.0)),
+        "tooth_class_loss_2": (l2, w.get("tooth_class_loss_2", 1.0)),
+        "offset_1_loss": (off_loss, w.get("offset_1_loss", 0.03)),
+        "offset_1_dir_loss": (dir_loss, w.get("offset_1_dir_loss", 0.03)),
+        "chamf_1_loss": (chamf, w.get("chamf_1_loss", 0.15)),
+        "cbl_loss_1": (cbl1, w.get("cbl_loss_1", 1.0)),
+        "cbl_loss_2": (cbl2, w.get("cbl_loss_2", 1.0)),
+    }
+
+
+def _tgnet_preset(name: str = "tgnet_fps") -> TrainConfig:
+    """train_configs/tgnet_fps.py: sgd lr 0.1 momentum 0.9 wd 1e-4, cosine
+    40; loss weights cbl 1/1, cls 1/1, offset .03/.03, chamfer .15."""
+    return TrainConfig(
+        model_name=name,
+        optimizer=OptimizerConfig(name="sgd", lr=1e-1, weight_decay=1e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig(sched="cosine", full_steps=40, min_lr=1e-5),
+        loss_weights={
+            "cbl_loss_1": 1.0,
+            "cbl_loss_2": 1.0,
+            "tooth_class_loss_1": 1.0,
+            "tooth_class_loss_2": 1.0,
+            "offset_1_loss": 0.03,
+            "offset_1_dir_loss": 0.03,
+            "chamf_1_loss": 0.15,
+        },
+        model_parameter=copy.deepcopy(TGNET_FPS_MODEL_PARAMETER),
+    )
+
+
+register_task(ModelTask(
+    name="tgnet_fps",
+    build_module=lambda config, device: build_tgnet_fps(
+        {"model_parameter": config.model_parameter}, device=device),
+    compute_losses=_tgnet_losses,
+    default_config=_tgnet_preset,
+    forward_kwargs=lambda batch: {"labels": batch["gt_seg_label"]},
+))

@@ -1,4 +1,4 @@
-"""Mask-aware building blocks, eval mode (counterpart of
+"""Mask-aware building blocks (counterpart of
 toothgroupnetwork_tpu/nn/layers.py). Channel-last ``[..., C]`` throughout.
 
 ``dtype`` is the compute dtype, as flax's ``dtype=``: parameters and
@@ -39,12 +39,21 @@ class Dense(nn.Linear):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the channel axis with the flax parameter names:
+    """BatchNorm over every leading axis with the flax parameter names:
     ``scale``/``bias`` parameters and ``mean``/``var`` running statistics,
     ``y = (x - mean) * rsqrt(var + eps) * scale + bias`` (eps 1e-5),
     computed in float32 from a float32 copy of ``x`` and cast to ``dtype``.
-    Masks only matter to training statistics, so the eval forward takes
-    none."""
+
+    In eval mode ``mean``/``var`` are the running statistics and the mask is
+    not read. In train mode they are the batch's over the points ``mask``
+    keeps (all points without a mask): the mean and the biased variance,
+    in float32; the running statistics take the unbiased variance with
+    flax's momentum 0.9 (torch's 0.1). An empty mask normalises with mean 0
+    and variance 1 and keeps the running statistics, as the JAX module does
+    (a variance of 0 would scale a deep stack to inf). Built in eval mode;
+    ``train()`` selects the batch statistics."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, *, device, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -54,8 +63,39 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
+        self.eval()    # built for serving, as the port's models are
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.reciprocal(torch.sqrt(self.var + self.eps))
-        y = (x.float() - self.mean) * inv * self.scale + self.bias
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training:
+            inv = torch.reciprocal(torch.sqrt(self.var + self.eps))
+            y = (x.float() - self.mean) * inv * self.scale + self.bias
+            return y.to(self.dtype)
+        xf = x.float()
+        red = tuple(range(x.dim() - 1))
+        empty = None
+        if mask is None:
+            n = float(x.numel() // x.shape[-1])
+            denom = max(n - 1.0, 1.0)
+            mean = xf.mean(dim=red)
+            var = ((xf - mean) ** 2).mean(dim=red)
+        else:
+            w = mask[..., None].float()
+            n_raw = w.sum()
+            n = torch.clamp_min(n_raw, 1.0)
+            denom = torch.clamp_min(n - 1.0, 1.0)
+            mean = (xf * w).sum(dim=red) / n
+            var = (((xf - mean) ** 2) * w).sum(dim=red) / n
+            empty = n_raw < 0.5
+            var = torch.where(empty, 1.0, var)
+        with torch.no_grad():
+            unbiased = var * n / denom
+            new_mean = self.momentum * self.mean + (1 - self.momentum) * mean
+            new_var = self.momentum * self.var + (1 - self.momentum) * unbiased
+            if empty is not None:
+                new_mean = torch.where(empty, self.mean, new_mean)
+                new_var = torch.where(empty, self.var, new_var)
+            self.mean.copy_(new_mean)
+            self.var.copy_(new_var)
+        inv = torch.reciprocal(torch.sqrt(var + self.eps))
+        y = (xf - mean) * inv * self.scale + self.bias
         return y.to(self.dtype)

@@ -1,0 +1,257 @@
+"""Trainer (counterpart of toothgroupnetwork_tpu/train/trainer.py).
+
+The JAX package's loop contract on one device: epochs of ``train_epoch`` and
+``eval_epoch``, the learning rate set per epoch (or every
+``scheduler.step_batches`` batches), ``<loss>_{train,step,val}`` log names,
+the latest and best-val checkpoint slots, ``resume``, and the elastic retry
+that restores the last checkpoint after a failed epoch. The step is the
+explicit function :func:`train_step`; the validation pass runs the model in
+eval mode, so its attention layers run the kernel K3.
+
+The data-parallel layer is not ported yet: ``data_parallel > 1`` raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from ..utils.weights import init_like_flax_
+from .checkpoints import restore_train_checkpoint, save_train_checkpoint
+from .loss_meter import LossMap, LossMeter
+from .schedule import PlateauLR, make_epoch_lr_fn
+from .train_state import make_optimizer, set_learning_rate
+
+if TYPE_CHECKING:
+    from ..models.registry import ModelTask
+
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only with
+# a fixed workspace; the size torch picks by default on Hopper
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True):
+    """``torch.use_deterministic_algorithms(on)`` inside the block: every op
+    takes its deterministic implementation (the gathers' backward
+    scatter-adds among them) or raises."""
+    before = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn)
+
+
+def train_step(model, optimizer, task: "ModelTask", config, batch: dict,
+               deterministic: bool = True) -> dict:
+    """One step: the train-mode forward, the weighted sum of the task's
+    losses, backward and the optimizer's update, under deterministic
+    algorithms unless ``deterministic`` is False. Returns each loss's value
+    (a detached tensor on the model's device)."""
+    model.train()
+    with deterministic_algorithms(deterministic):
+        outputs = model(batch["feat"], batch.get("mask"), **task.forward_kwargs(batch))
+        losses = task.compute_losses(outputs, batch, config)
+        optimizer.zero_grad(set_to_none=True)
+        LossMap(losses).get_sum().backward()
+        zero_missing_grads(optimizer)
+        optimizer.step()
+    return {k: v.detach() for k, (v, _) in losses.items()}
+
+
+def zero_missing_grads(optimizer) -> None:
+    """A zero gradient for every parameter the losses did not reach (the
+    crop stage's offset classifier), so that it still decays, as under
+    optax; torch's optimizers skip a parameter whose gradient is None."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
+def eval_step(model, task: "ModelTask", config, batch: dict) -> dict:
+    """The task's losses of the eval-mode forward (running statistics, the
+    eval kernels), without gradients."""
+    model.eval()
+    with torch.no_grad():
+        outputs = model(batch["feat"], batch.get("mask"), **task.forward_kwargs(batch))
+        losses = task.compute_losses(outputs, batch, config)
+    return {k: v for k, (v, _) in losses.items()}
+
+
+class Trainer:
+    """``device``: where the model trains (the card unless the caller names
+    another device). The model starts from flax's initial distribution,
+    drawn from a generator seeded with ``config.seed``."""
+
+    def __init__(self, config, task: "ModelTask", train_loader, val_loader,
+                 log_fn=print, device: str | torch.device = "cuda"):
+        if config.data_parallel > 1:
+            raise NotImplementedError(
+                f"data_parallel={config.data_parallel}: the port trains on one "
+                "device; its parallel layer is a later slice (ROADMAP.md, "
+                "Queue 1)")
+        # before the process's first cuBLAS call, which fixes the workspace
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+        self.config = config
+        self.task = task
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.log = log_fn
+        self.device = resolve_device(str(device))
+        self.lr_fn = make_epoch_lr_fn(config.optimizer, config.scheduler)
+        self.model = task.build_module(config, device=self.device)
+        init_like_flax_(self.model, torch.Generator().manual_seed(config.seed))
+        self.optimizer = make_optimizer(config.optimizer, self.model.parameters())
+        self.step = 0          # optimizer steps taken
+        self.best_val = float("inf")
+        self.epoch = 0
+        self.step_count = 0    # scheduler-step counter (reference step_count)
+        self.wandb = None
+        if config.wandb_on:
+            try:
+                import wandb
+
+                self.wandb = wandb
+                wandb.init(project=config.wandb_project, name=config.experiment_name,
+                           config=config.to_dict())
+            except Exception as e:  # wandb is optional: log and go on without it
+                self.log(f"wandb disabled: {e!r}")
+
+    def device_batch(self, batch: dict) -> dict:
+        """The batch's arrays as tensors on the device (a mask of ones where
+        the batch has none); other fields dropped."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        arrays.setdefault("mask", np.ones(arrays["feat"].shape[:2], dtype=bool))
+        return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
+
+    def _weighted(self, values: dict, postfix: str) -> dict:
+        out = {f"{k}_{postfix}": float(v) * self._weight(k) for k, v in values.items()}
+        out[f"total_{postfix}"] = sum(out.values())
+        return out
+
+    def train_epoch(self) -> dict:
+        meter = LossMeter()
+        step_meter = LossMeter()
+        step_every = self.config.scheduler.step_batches
+        pre_step = self.step_count
+        try:
+            n_batches = len(self.train_loader)
+        except TypeError:
+            n_batches = -1  # unsized loader: no epoch-end fallback fire
+        for batch_idx, batch in enumerate(self.train_loader):
+            values = train_step(self.model, self.optimizer, self.task, self.config,
+                                self.device_batch(batch))
+            self.step += 1
+            weighted = self._weighted(values, "step")
+            meter.aggr(weighted)
+            if step_every > 0:
+                # per-N-batch scheduler stepping and step-frequency logging:
+                # every step_batches batches, or once at the epoch's end if
+                # it never fired
+                step_meter.aggr(weighted)
+                if ((batch_idx + 1) % step_every == 0
+                        or (self.step_count == pre_step
+                            and batch_idx == n_batches - 1)):
+                    plateau = isinstance(self.lr_fn, PlateauLR)
+                    lr = self.lr_fn.lr if plateau else self.lr_fn(self.step_count)
+                    if self.wandb:
+                        self.wandb.log(step_meter.get_avg_results(),
+                                       step=self.step_count)
+                        self.wandb.log({"step_lr": lr}, step=self.step_count)
+                    self.step_count += 1
+                    if not plateau:
+                        set_learning_rate(self.optimizer, self.lr_fn(self.step_count))
+                    step_meter = LossMeter()
+        return {k.replace("_step", "_train"): v
+                for k, v in meter.get_avg_results().items()}
+
+    def eval_epoch(self) -> dict:
+        meter = LossMeter()
+        for batch in self.val_loader:
+            # a partial val batch is padded by repeating item 0 and flagged
+            # in batch_valid: slice the padding off, so that it cannot bias
+            # the val loss (and the best-checkpoint choice)
+            bv = batch.pop("batch_valid", None)
+            if bv is not None and not bv.all():
+                n_valid = int(bv.sum())
+                batch = {k: (v[:n_valid] if isinstance(v, (np.ndarray, list))
+                             and len(v) == len(bv) else v)
+                         for k, v in batch.items()}
+            else:
+                n_valid = len(batch["feat"])
+            values = eval_step(self.model, self.task, self.config,
+                               self.device_batch(batch))
+            meter.aggr(self._weighted(values, "val"), weight=n_valid)
+        return meter.get_avg_results()
+
+    def _weight(self, name: str) -> float:
+        return self.config.loss_weights.get(name, 1.0)
+
+    def _run_one_epoch(self):
+        set_learning_rate(self.optimizer, self.lr_fn(self.epoch))
+        t0 = time.perf_counter()
+        train_stats = self.train_epoch()
+        val_stats = self.eval_epoch()
+        dt = time.perf_counter() - t0
+        if isinstance(self.lr_fn, PlateauLR):
+            # plateau decays on the val metric
+            self.lr_fn(self.epoch, metric=val_stats.get("total_val"))
+        stats = {**train_stats, **val_stats,
+                 "lr": self.lr_fn(self.epoch), "epoch_time_s": dt}
+        self.log(f"epoch {self.epoch}: " +
+                 " ".join(f"{k}={v:.5f}" for k, v in stats.items()))
+        if self.wandb:
+            self.wandb.log(stats, step=self.epoch)
+
+        save_train_checkpoint(self.config.checkpoint_path, self.model,
+                              self.optimizer, self.step, self.epoch)
+        if val_stats.get("total_val", float("inf")) < self.best_val:
+            self.best_val = val_stats["total_val"]
+            save_train_checkpoint(self.config.checkpoint_path + "_val", self.model,
+                                  self.optimizer, self.step, self.epoch,
+                                  {"best_val": self.best_val})
+        self.epoch += 1
+
+    def run(self, max_epochs: int | None = None):
+        """The epoch loop, bounded by ``max_epochs`` (else the config's).
+        With ``config.elastic_retries > 0`` a failed epoch restores the last
+        checkpoint (model, optimizer, step and epoch) and runs again, up to
+        that many times in a row."""
+        total = max_epochs if max_epochs is not None else self.config.max_epochs
+        end = self.epoch + total
+        failures = 0
+        while self.epoch < end:
+            try:
+                self._run_one_epoch()
+                failures = 0  # a completed epoch resets the retry budget
+            except KeyboardInterrupt:
+                raise
+            except Exception as e:
+                failures += 1
+                if failures > self.config.elastic_retries:
+                    raise
+                self.log(f"epoch {self.epoch} failed ({e!r}); restoring last "
+                         f"checkpoint and retrying "
+                         f"({failures}/{self.config.elastic_retries})")
+                if os.path.exists(self.config.checkpoint_path):
+                    self.resume()  # rolls the state and the epoch back
+                else:
+                    # nothing checkpointed yet: retry the epoch with the
+                    # current (partly advanced) state
+                    self.log("no checkpoint to restore; retrying in place")
+        return self.model
+
+    def resume(self) -> int:
+        self.step, epoch = restore_train_checkpoint(
+            self.config.checkpoint_path, self.model, self.optimizer)
+        self.epoch = epoch + 1
+        return self.epoch

@@ -10,6 +10,7 @@ BatchNorm ``scale``/``mean``/``var`` keep their names.
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -89,4 +90,35 @@ def randomize_(module: nn.Module, generator: torch.Generator,
             else:
                 r = scale * torch.randn(t.shape, generator=generator)
             t.copy_(r.to(t.device))
+    return module
+
+
+# flax's lecun_normal: a standard normal truncated to [-2, 2], divided by
+# its standard deviation (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``module`` from flax's distribution, drawn from
+    ``generator``: every Dense weight ``lecun_normal`` (variance 1 / fan_in,
+    truncated normal), Dense biases zero, BatchNorm scale 1, bias 0, mean 0
+    and variance 1. The weights are drawn in module order."""
+    from ..nn.layers import MaskedBatchNorm
+
+    lo, hi = ((1.0 + math.erf(s / math.sqrt(2.0))) / 2.0 for s in (-2.0, 2.0))
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                fan_in = m.weight.shape[1]
+                u = torch.rand(m.weight.shape, generator=generator, dtype=torch.float64)
+                z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+                z = z.clamp(-2.0, 2.0) * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+                m.weight.copy_(z.to(m.weight.device, m.weight.dtype))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, MaskedBatchNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+                m.mean.zero_()
+                m.var.fill_(1.0)
     return module
