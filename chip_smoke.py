@@ -60,7 +60,18 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      deterministic algorithms, its peak memory and one profiled step; one
      epoch through ``cli.train.main`` (K1 and K2 launched in the train
      steps, K3 in the val pass), the checkpoint resumed and the exported
-     ``.npz`` serving one scan.
+     ``.npz`` serving one scan; three steps with ``"dtype": "bfloat16"``
+     (finite losses, K1 and K2 launched, seconds beside float32's);
+ 11. the workflow: three labelled synthetic 100489-vertex cases through
+     ``cli.preprocess`` (K1 once a scan, the arrays identical to K1's plain
+     version's), ``cli.split`` and ``cli.train --model_name tgnet_bdl``
+     (the boundary engine's frozen fps model launching K1, K2 and K3, its
+     resample K1; the bdl step K2; the val pass K3; a cached epoch without
+     the frozen model), the host stage's launches and seconds by part a
+     case, the engine identical with K1's plain version, the bdl step on
+     the card against the CPU port's and repeated bit for bit, then the
+     exported weights serving one case through ``cli.infer`` and
+     ``cli.evaluate`` printing what ``cal_metric`` gives.
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -69,6 +80,7 @@ JSON line of the kernels, the nvidia-smi line again, and last the line
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -152,6 +164,10 @@ TRAIN_CASES = (("TR00", "lower", 14), ("TR01", "upper", 12), ("TR02", "lower", 1
 TRAIN_FALL_STEPS = 8
 TRAIN_REPEAT_STEPS = 3
 TRAIN_TIMED_STEPS = 4
+TRAIN_BF16_STEPS = 3
+# the workflow phase: three labelled synthetic 100489-vertex cases (both
+# jaws), preprocessed, split, and the bdl model trained on them
+WORKFLOW_CASES = (("WF00", "lower"), ("WF01", "upper"), ("WF02", "lower"))
 
 
 def log(phase: str, **fields) -> None:
@@ -1242,7 +1258,376 @@ def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
         raise AssertionError(f"trained weights: {len(labels)} labels for {n_vert} "
                              "vertices, or labels outside the FDI set")
     pipe.close()
+
+    # bf16 training: the same batch at full width with "dtype": "bfloat16"
+    cfg16 = task.default_config()
+    cfg16.model_parameter["dtype"] = "bfloat16"
+    model16 = task.build_module(cfg16, device=dev)
+    init_like_flax_(model16, torch.Generator().manual_seed(cfg16.seed))
+    opt16 = make_optimizer(cfg16.optimizer, model16.parameters())
+    zero()
+    losses16, secs16 = [], []
+    for _ in range(TRAIN_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = train_step(model16, opt16, task, cfg16, on_card)
+        losses16.append({k: float(v) for k, v in vals.items()})
+        secs16.append(time.perf_counter() - t0)
+    per_step16 = {k: v / TRAIN_BF16_STEPS for k, v in counts().items()}
+    log("train_bf16", steps=TRAIN_BF16_STEPS, losses=losses16, step_s=secs16,
+        median_step_s=float(np.median(secs16[1:])),
+        float32_median_step_s=med[True], launches_per_step=per_step16)
+    if not all(np.isfinite(list(ls.values())).all() for ls in losses16):
+        raise AssertionError(f"bf16 training: non-finite losses {losses16}")
+    if not (per_step16["fps"] and per_step16["knn_select"]):
+        raise AssertionError(f"bf16 training: kernels not launched {per_step16}")
+    if not all(t.dtype == torch.float32 for t in model16.state_dict().values()):
+        raise AssertionError("bf16 training: a parameter or statistic is not float32")
+    del model16, opt16
     return {"per_train_step": per_step, "per_val_scan": per_val}
+
+
+def plain_fps_indices(xyz: np.ndarray, m: int, device) -> np.ndarray:
+    """``data.preprocess.fps_indices`` through K1's plain version, on
+    ``device``: the reference the workflow holds K1's samples to."""
+    from toothgroupnetwork_tpu_torch.ops.kernels.fps import fps_reference
+
+    pts = torch.from_numpy(np.ascontiguousarray(xyz, dtype=np.float32)).to(device)
+    return fps_reference(pts[None], m)[0].cpu().numpy()
+
+
+def phase_workflow(dev, work: Path, ckpts) -> dict:
+    """The whole tgnet workflow through the port's entry points on labelled
+    synthetic 100489-vertex cases (``WORKFLOW_CASES``):
+
+      * ``cli.preprocess``: one 24000-point .npy a case, K1 once a scan,
+        each array identical to the one K1's plain version samples on the
+        card, seconds a scan;
+      * ``cli.split``: each case in one fold; the train fold trains, the
+        test fold validates (three cases give no val fold);
+      * ``cli.train --model_name tgnet_bdl`` (the main path), one epoch, the
+        frozen fps model from phase 5's random weights, the obj/json roots
+        and a cache dir: K1, K2 and K3 launched; a second epoch on cache
+        hits (the frozen model never runs): K2 and no K3 a bdl step, K3 in
+        the val pass;
+      * the host stage alone on each uncached case (a fresh engine): its
+        launches and seconds by part, no refold and no new kernel layout on
+        the second case, and the same clouds from an engine given the same
+        frozen outputs with K1's plain version; the frozen stage 1's argmax
+        on the card against the CPU port's >= 0.999;
+      * the bdl step: step 1 within 1e-3 relative of the CPU port's, two
+        seeded runs bit-identical, the loss falling over 8 steps, every loss
+        finite, the median step, peak memory, one profiled step;
+      * the exported fps and bdl .npz serve one case through ``cli.infer``,
+        and ``cli.evaluate`` prints the four numbers ``cal_metric`` gives.
+
+    Returns K1-K3's launches per bdl train step, per val scan and per
+    host-stage case."""
+    import contextlib
+    import io
+    import shutil
+
+    from synthetic import write_synthetic_case
+
+    from toothgroupnetwork_tpu_torch.cli import evaluate, infer, split
+    from toothgroupnetwork_tpu_torch.cli import preprocess as cli_preprocess
+    from toothgroupnetwork_tpu_torch.cli import train as cli_train
+    from toothgroupnetwork_tpu_torch.data import DentalScanDataset, collate_batch
+    from toothgroupnetwork_tpu_torch.data import preprocess
+    from toothgroupnetwork_tpu_torch.eval.metrics import cal_metric
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+        PointTransformerLayer)
+    from toothgroupnetwork_tpu_torch.models.tasks import bdl_engine, build_tgnet_fps
+    from toothgroupnetwork_tpu_torch.ops.kernels import attention, fps, knn
+    from toothgroupnetwork_tpu_torch.train import bdl_engine as engine_module
+    from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.train.checkpoints import save_weights
+    from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_, load_npz
+
+    src = work / "workflow"
+    for i, (case, jaw) in enumerate(WORKFLOW_CASES):
+        write_synthetic_case(str(src), case, jaw, n_side=N_SIDE, seed=30 + i)
+    kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x,
+               attention.project_kv)
+
+    def counts():
+        return {k.__name__: k.launches for k in kernels}
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+
+    # preprocess: the main path, then the plain version's samples
+    processed = src / "processed"
+    zero()
+    t0 = time.perf_counter()
+    cli_preprocess.main(["--source_obj_data_path", str(src / "objs"),
+                         "--source_json_data_path", str(src / "jsons"),
+                         "--save_data_path", str(processed), "--device", str(dev)])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre_counts = counts()
+    real = preprocess.fps_indices
+    preprocess.fps_indices = plain_fps_indices
+    try:
+        same = []
+        for case, jaw in WORKFLOW_CASES:
+            arr, n_valid, _ = preprocess.preprocess_scan(
+                str(src / "objs" / case / f"{case}_{jaw}.obj"),
+                str(src / "jsons" / case / f"{case}_{jaw}.json"), dev)
+            saved = np.load(processed / f"{case}_{jaw}_{jaw}_sampled_points.npy")
+            same.append(n_valid == N_POINTS and np.array_equal(arr, saved))
+    finally:
+        preprocess.fps_indices = real
+    log("workflow_preprocess", scans=len(WORKFLOW_CASES), wall_s=pre_s,
+        s_per_scan=pre_s / len(WORKFLOW_CASES), launches=pre_counts,
+        identical_to_plain=same)
+    if pre_counts["fps"] != len(WORKFLOW_CASES) or not all(same):
+        raise AssertionError(f"preprocess: K1 launches {pre_counts}, arrays equal "
+                             f"to the plain version's {same}")
+
+    # split
+    splits = split.main(["--processed_data_path", str(processed),
+                         "--out_dir", str(src / "splits")])
+    folds = sorted(c for ids in splits.values() for c in ids)
+    log("workflow_split", folds={k: len(v) for k, v in splits.items()})
+    if folds != sorted(c for c, _ in WORKFLOW_CASES) or len(splits["train_fold.txt"]) != 2:
+        raise AssertionError(f"split: {splits}")
+
+    task = get_task("tgnet_bdl")
+    cfg = task.default_config()
+    cfg.model_parameter["boundary_sampling_info"].update(
+        orginal_data_obj_path=str(src / "objs"), orginal_data_json_path=str(src / "jsons"),
+        bdl_cache_path=str(src / "bdl_cache"))
+    cfg.model_parameter["fps_model_info"]["load_ckpt_path"] = str(ckpts["fps"])
+    cfg.save_json(str(src / "bdl_config.json"))
+
+    # the main path: one epoch of tgnet_bdl through the CLI
+    argv = ["--model_name", "tgnet_bdl", "--config_path", str(src / "bdl_config.json"),
+            "--input_data_dir_path", str(processed),
+            "--train_data_split_txt_path", str(src / "splits" / "train_fold.txt"),
+            "--val_data_split_txt_path", str(src / "splits" / "test_fold.txt"),
+            "--checkpoint_path", str(src / "ckpt" / "bdl"), "--max_epochs", "1",
+            "--device", str(dev)]
+    zero()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(argv)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    main_counts = counts()
+    engine = bdl_engine(trainer.config, dev)
+    cached = sorted(os.listdir(src / "bdl_cache"))
+    log("workflow_train_cli", epochs=trainer.epoch, steps=trainer.step, wall_s=epoch_s,
+        best_val=trainer.best_val, launches=main_counts, cache=cached,
+        host_stage_s=dict(engine.seconds))
+    if not all(main_counts.values()) or not np.isfinite(trainer.best_val) \
+            or len(cached) != len(WORKFLOW_CASES):
+        raise AssertionError(f"cli.train tgnet_bdl: launches {main_counts}, val "
+                             f"{trainer.best_val}, cache {cached}")
+
+    # a second epoch on cache hits: launches a bdl step and a val scan
+    frozen_calls = [0]
+    frozen = engine._frozen
+
+    def counted(*args):
+        frozen_calls[0] += 1
+        return frozen(*args)
+
+    engine._frozen = counted
+    zero()
+    step0 = trainer.step
+    t0 = time.perf_counter()
+    train_stats = trainer.train_epoch()
+    torch.cuda.synchronize()
+    cached_epoch_s = time.perf_counter() - t0
+    per_step = {k: v / (trainer.step - step0) for k, v in counts().items()}
+    zero()
+    val_stats = trainer.eval_epoch()
+    n_val = len(trainer.val_loader.dataset)
+    per_val = {k: v / n_val for k, v in counts().items()}
+    engine._frozen = frozen
+    log("workflow_bdl_launches", per_bdl_step=per_step, per_val_scan=per_val,
+        frozen_calls=frozen_calls[0], cached_epoch_s=cached_epoch_s,
+        train=train_stats, val=val_stats)
+    if frozen_calls[0] or not per_step["knn_select"] \
+            or per_step["fused_vector_attention_packed_x"]:
+        raise AssertionError(f"cached epoch: frozen calls {frozen_calls[0]}, "
+                             f"launches a step {per_step}")
+    if not per_val["fused_vector_attention_packed_x"]:
+        raise AssertionError(f"bdl val pass launched {per_val}")
+
+    # the host stage alone on each uncached case, then the same frozen
+    # outputs through an engine whose FPS is K1's plain version
+    uncached = copy.deepcopy(trainer.config)
+    uncached.model_parameter["boundary_sampling_info"]["bdl_cache_path"] = None
+    fresh = engine_module.BdlDataEngine(dev)
+    recorded, frozen_launches = {}, []
+    forward = fresh._ensure_frozen(uncached)
+
+    def record(feat, labels):
+        before = counts()
+        recorded[feat.tobytes()] = out = forward(feat, labels)
+        frozen_launches.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    fresh._frozen = record
+    layers = [m for m in fresh.frozen_model.modules() if isinstance(m, PointTransformerLayer)]
+    ds = DentalScanDataset(str(processed))
+    batches = [collate_batch([ds[i]]) for i in range(len(ds))]
+    per_case, outs, parts, kept = [], [], [], None
+    for i, batch in enumerate(batches):
+        before = dict(fresh.seconds)
+        zero()
+        t0 = time.perf_counter()
+        outs.append(fresh(None, batch, uncached))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_case.append(counts())
+        parts.append({k: v - before.get(k, 0.0) for k, v in fresh.seconds.items()}
+                     | {"wall": wall})
+        state = [(m._folded, tuple(lay for _, lay in
+                                   m._folded.get(attention.LAYOUT_KEY, {}).values()))
+                 for m in layers]
+        if i == 0:
+            kept = state
+        refolded = sum(a[0] is not b[0] or any(x is not y for x, y in zip(a[1], b[1]))
+                       for a, b in zip(state, kept))
+        # (kernel layouts exist on the card only)
+        if refolded or (dev.type == "cuda" and not all(lay for _, lay in state)):
+            raise AssertionError(f"host stage case {i}: {refolded} attention layers "
+                                 "folded or laid out again")
+    t0 = time.perf_counter()
+    cache_hit = engine(None, batches[0], trainer.config)  # the CLI run's cache
+    hit_s = time.perf_counter() - t0
+    plain = engine_module.BdlDataEngine(dev)
+    plain._frozen = lambda feat, labels: recorded[feat.tobytes()]
+    real = engine_module.fps_indices
+    engine_module.fps_indices = plain_fps_indices
+    try:
+        same = []
+        for batch, out in zip(batches, outs):
+            got = plain(None, batch, uncached)
+            same.append(all(np.array_equal(got[k], out[k]) for k in out))
+    finally:
+        engine_module.fps_indices = real
+    resample = [c["fps"] - f["fps"] for c, f in zip(per_case, frozen_launches)]
+    host_launches = {k: sum(c[k] for c in per_case) / len(per_case) for k in per_case[0]}
+    log("workflow_host_stage", cases=len(batches), launches_per_case=per_case,
+        frozen_launches_per_case=frozen_launches, resample_fps_launches=resample,
+        seconds_by_part=parts, cache_hit_s=hit_s, identical_with_plain_fps=same,
+        layers_folded_once=len(layers))
+    if not all(same):
+        raise AssertionError(f"host stage: clouds with K1's plain version differ {same}")
+    if not all(all(f.values()) for f in frozen_launches) or not all(resample):
+        raise AssertionError(f"host stage launches: frozen {frozen_launches}, "
+                             f"resample K1 {resample}")
+    if cache_hit["feat"].shape != outs[0]["feat"].shape:
+        raise AssertionError("host stage: a cache hit of another shape")
+
+    # the frozen model's stage 1, card vs CPU port
+    feat = torch.from_numpy(batches[0]["feat"]).to(dev)
+    fps_cfg = {"model_parameter": get_task("tgnet_fps").default_config().model_parameter}
+    cpu_model = load_npz(str(ckpts["fps"]), build_tgnet_fps(fps_cfg, device="cpu")).eval()
+    with torch.no_grad():
+        on_card = fresh.frozen_model.stage1(feat)["sem_1"].float().cpu()
+        t0 = time.perf_counter()
+        on_cpu = cpu_model.stage1(feat.cpu())["sem_1"]
+        cpu_s = time.perf_counter() - t0
+    agree = float((on_card.argmax(-1) == on_cpu.argmax(-1)).float().mean())
+    log("workflow_frozen_stage1", argmax_agreement=agree, cpu_s=cpu_s,
+        max_abs_dlogit=float((on_card - on_cpu).abs().max()))
+    if agree < 0.999:
+        raise AssertionError(f"frozen stage 1 argmax agreement {agree} < 0.999")
+    del cpu_model, fresh, plain
+
+    # the bdl step on the first case's resampled cloud
+    batch = {k: torch.from_numpy(outs[0][k]) for k in ("feat", "gt_seg_label", "mask")}
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+
+    def fresh_model(device):
+        model = task.build_module(cfg, device=device)
+        init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
+        return model, make_optimizer(cfg.optimizer, model.parameters())
+
+    def run(steps, model=None, opt=None):
+        if model is None:
+            model, opt = fresh_model(dev)
+        losses, secs = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals = train_step(model, opt, task, cfg, on_dev)
+            losses.append({k: float(v) for k, v in vals.items()})
+            secs.append(time.perf_counter() - t0)
+        return model, opt, losses, secs
+
+    model_a, opt_a, losses_a, secs_a = run(TRAIN_REPEAT_STEPS)
+    model_c, opt_c = fresh_model(torch.device("cpu"))
+    t0 = time.perf_counter()
+    cpu = {k: float(v) for k, v in train_step(model_c, opt_c, task, cfg, batch).items()}
+    cpu_step_s = time.perf_counter() - t0
+    del model_c, opt_c
+    rel = {k: abs(losses_a[0][k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    log("workflow_bdl_step1", card=losses_a[0], cpu=cpu, rel_diff=rel,
+        cpu_step_s=cpu_step_s)
+    if len(cpu) != 7 or max(rel.values()) > 1e-3:
+        raise AssertionError(f"bdl step 1: card vs CPU relative differences {rel}")
+    model_b, _, losses_b, _ = run(TRAIN_REPEAT_STEPS)
+    same = losses_a == losses_b and all(
+        torch.equal(a, b) for a, b in zip(model_a.state_dict().values(),
+                                          model_b.state_dict().values()))
+    del model_b
+    _, _, more, secs_more = run(TRAIN_FALL_STEPS - TRAIN_REPEAT_STEPS, model_a, opt_a)
+    totals = [sum(v * cfg.loss_weights[k] for k, v in ls.items())
+              for ls in losses_a + more]
+    torch.cuda.reset_peak_memory_stats(dev)
+    run(1, model_a, opt_a)
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = (secs_a + secs_more)[1:]
+    log("workflow_bdl_train", repeat_identical=same, total_loss=totals,
+        median_step_s=float(np.median(steady)), steps_timed=len(steady),
+        first_step_s=secs_a[0], peak_memory_gib=peak / 2 ** 30,
+        host_stage_uncached_s=[p["wall"] for p in parts], host_stage_cache_hit_s=hit_s)
+    if not same:
+        raise AssertionError("two seeded bdl runs differ")
+    if not all(np.isfinite(list(ls.values())).all() for ls in losses_a + more):
+        raise AssertionError(f"non-finite bdl losses: {losses_a + more}")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"the bdl loss did not fall over {len(totals)} steps: {totals}")
+    profile_call(lambda: run(1, model_a, opt_a), "bdl train step")
+    del model_a, opt_a
+
+    # serve one case with the exported weights, then evaluate it
+    case, jaw = WORKFLOW_CASES[0]
+    bdl_npz = work / "trained_bdl.npz"
+    save_weights(str(bdl_npz), trainer.model)
+    serve_dir = src / "serve"
+    serve_dir.mkdir()
+    shutil.copy(src / "objs" / case / f"{case}_{jaw}.obj", serve_dir)
+    pipe = infer.main(["--input_dir_path", str(serve_dir), "--save_path", str(src / "pred"),
+                       "--model_name", "tgnet", "--checkpoint_path", str(ckpts["fps"]),
+                       "--checkpoint_path_bdl", str(bdl_npz), "--device", str(dev)])
+    pipe.close()
+    gt_json = src / "jsons" / case / f"{case}_{jaw}.json"
+    pred_json = src / "pred" / f"{case}_{jaw}.json"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        evaluate.main(["--gt_json_path", str(gt_json), "--pred_json_path", str(pred_json)])
+    gt = np.array(json.loads(gt_json.read_text())["labels"])
+    pred = np.array(json.loads(pred_json.read_text())["labels"])
+    iou, f1, acc, sem_acc, _ = cal_metric(gt, pred, pred)
+    want = (f"{pred_json.name}: IoU {iou:.4f} F1(TSA) {f1:.4f} ACC {acc:.4f} "
+            f"SEM_ACC(TIR) {sem_acc:.4f}")
+    log("workflow_evaluate", printed=printed.getvalue().strip(), vertices=len(pred),
+        labels=sorted(set(pred.tolist())))
+    if printed.getvalue().strip() != want or len(pred) != len(gt) \
+            or not set(pred.tolist()) <= FDI:
+        raise AssertionError(f"evaluate printed {printed.getvalue()!r}, cal_metric "
+                             f"{want!r}")
+    return {"per_bdl_step": per_step, "per_bdl_val_scan": per_val,
+            "per_host_stage_case": host_launches}
 
 
 def step_phases(model, opt, task, cfg, batch) -> dict:
@@ -1369,6 +1754,7 @@ def main() -> int:
         entry_launches = phase_entries(dev, feats0)
         phase_serve_many(pipes, work, base + cell + entry)
         train = phase_train(dev, work, ckpts, scans[0])
+        workflow = phase_workflow(dev, work, ckpts)
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
@@ -1380,6 +1766,12 @@ def main() -> int:
         # training (phase 10): K1-K3 a train step and a val scan
         rec.entry["train_launches_per_step"] = train["per_train_step"].get(name, 0)
         rec.entry["val_launches_per_scan"] = train["per_val_scan"].get(name, 0)
+        # the workflow (phase 11): a tgnet_bdl train step, its val scan and
+        # the host stage's uncached case (frozen fps model + resample)
+        rec.entry["bdl_launches_per_step"] = workflow["per_bdl_step"].get(name, 0)
+        rec.entry["bdl_val_launches_per_scan"] = workflow["per_bdl_val_scan"].get(name, 0)
+        rec.entry["host_stage_launches_per_case"] = workflow["per_host_stage_case"].get(
+            name, 0)
     # each K3 shape with its launches a scan, per configuration
     for row in records[2].entry["shapes"]:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)

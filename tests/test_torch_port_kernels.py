@@ -604,14 +604,14 @@ class TestTrainingOnCard:
     ARCH = {"planes": [8, 16], "stride": [1, 4], "nsample": [8, 8],
             "blocks": [2, 2], "block_num": 2, "crop_sample_size": 32}
 
-    def _run(self, device, batch, steps=3):
+    def _run(self, device, batch, steps=3, dtype="float32"):
         from toothgroupnetwork_tpu_torch.models import get_task
         from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
         from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
 
         task = get_task("tgnet_fps")
         cfg = task.default_config()
-        cfg.model_parameter.update(self.ARCH)
+        cfg.model_parameter.update(self.ARCH, dtype=dtype)
         cfg.optimizer.lr = 1e-2
         model = task.build_module(cfg, device=device)
         init_like_flax_(model, torch.Generator().manual_seed(0))
@@ -621,11 +621,8 @@ class TestTrainingOnCard:
                   for _ in range(steps)]
         return model, losses
 
-    def test_steps_match_the_cpu_and_repeat(self, cuda_device, gen):
-        """Three steps on the card: each loss within 1e-4 relative of the CPU
-        port's, K1 and K2 launched and K3 not (training runs the unfused
-        attention), and a second seeded run bit-identical (losses,
-        parameters, BatchNorm statistics)."""
+    @staticmethod
+    def _batch():
         from synthetic import make_synthetic_jaw_points
 
         pts, _, cls = make_synthetic_jaw_points(240, 6, seed=1)
@@ -634,9 +631,16 @@ class TestTrainingOnCard:
         feat[0, :240, 5] = 1.0
         labels = np.full((1, 256), -1, np.int32)
         labels[0, :240] = cls - 1
-        batch = {"feat": torch.from_numpy(feat),
-                 "gt_seg_label": torch.from_numpy(labels),
-                 "mask": torch.from_numpy(np.arange(256)[None] < 240)}
+        return {"feat": torch.from_numpy(feat),
+                "gt_seg_label": torch.from_numpy(labels),
+                "mask": torch.from_numpy(np.arange(256)[None] < 240)}
+
+    def test_steps_match_the_cpu_and_repeat(self, cuda_device, gen):
+        """Three steps on the card: each loss within 1e-4 relative of the CPU
+        port's, K1 and K2 launched and K3 not (training runs the unfused
+        attention), and a second seeded run bit-identical (losses,
+        parameters, BatchNorm statistics)."""
+        batch = self._batch()
         kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x)
         for k in kernels:
             k.launches = 0
@@ -651,3 +655,96 @@ class TestTrainingOnCard:
         for (name, a), b in zip(model_a.state_dict().items(),
                                 model_b.state_dict().values()):
             assert torch.equal(a, b), name
+
+    def test_bf16_steps(self, cuda_device):
+        """Three steps with ``"dtype": "bfloat16"`` on the card: every loss
+        finite, K1 and K2 launched, step 1 within 8 bf16 ulps (2^-5
+        relative) of the CPU port's bf16 step (two bf16 roundings of sums
+        taken in other orders, as tests/test_torch_port_train_bf16.py
+        derives), a second seeded run bit-identical, and every parameter
+        and statistic float32."""
+        batch = self._batch()
+        for k in (fps.fps, knn.knn_select):
+            k.launches = 0
+        model_a, card = self._run(cuda_device, batch, dtype="bfloat16")
+        assert fps.fps.launches > 0 and knn.knn_select.launches > 0
+        assert all(np.isfinite(list(step.values())).all() for step in card)
+        _, cpu = self._run(torch.device("cpu"), batch, steps=1, dtype="bfloat16")
+        for key, val in cpu[0].items():
+            assert card[0][key] == pytest.approx(val, rel=2.0 ** -5), key
+        model_b, again = self._run(cuda_device, batch, dtype="bfloat16")
+        assert again == card
+        for (name, a), b in zip(model_a.state_dict().items(),
+                                model_b.state_dict().values()):
+            assert a.dtype == torch.float32 and torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+class TestBdlOnCard:
+    """The tgnet_bdl boundary engine on the card at a tiny size: three
+    labelled 900-vertex synthetic cases preprocessed on the card (K1) to 512
+    points, 300 boundary points, the tiny fps model of TestTrainingOnCard
+    with crops of 64 as the frozen model."""
+
+    FPS = {"planes": [8, 16], "stride": [1, 4], "nsample": [8, 8], "blocks": [2, 2],
+           "block_num": 2, "crop_sample_size": 64}
+
+    def _setup(self, tmp_path, device):
+        from synthetic import write_synthetic_case
+
+        from toothgroupnetwork_tpu_torch.data import DentalScanDataset, collate_batch
+        from toothgroupnetwork_tpu_torch.data import preprocess
+        from toothgroupnetwork_tpu_torch.models import get_task
+
+        for i, (case, jaw) in enumerate((("CASE01", "lower"), ("CASE02", "upper"))):
+            write_synthetic_case(str(tmp_path), case, jaw, n_side=30, seed=i)
+        fps.fps.launches = 0
+        saved = preprocess.N_POINTS
+        preprocess.N_POINTS = 512
+        try:
+            preprocess.preprocess_dir(str(tmp_path / "objs"), str(tmp_path / "jsons"),
+                                      str(tmp_path / "processed"), verbose=False,
+                                      device=device)
+        finally:
+            preprocess.N_POINTS = saved
+        assert fps.fps.launches == 2
+        cfg = get_task("tgnet_bdl").default_config()
+        cfg.model_parameter["boundary_sampling_info"].update(
+            num_of_bdl_points=300, num_of_all_points=512,
+            orginal_data_obj_path=str(tmp_path / "objs"),
+            orginal_data_json_path=str(tmp_path / "jsons"))
+        cfg.model_parameter["fps_model_info"]["model_parameter"] = dict(self.FPS)
+        ds = DentalScanDataset(str(tmp_path / "processed"))
+        return cfg, [collate_batch([ds[i]]) for i in range(len(ds))]
+
+    def test_engine_equals_the_plain_version(self, cuda_device, tmp_path):
+        """Given the same frozen outputs (the card's frozen forward, run once
+        per case), the engine on the card (K1 resampling the non-boundary
+        vertices) and on the CPU (K1's plain version) give identical clouds;
+        the frozen forward launches K1, K2 and K3, the resample K1."""
+        from toothgroupnetwork_tpu_torch.train.bdl_engine import BdlDataEngine
+
+        cfg, batches = self._setup(tmp_path, cuda_device)
+        card = BdlDataEngine(cuda_device)
+        kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x)
+        frozen = card._ensure_frozen(cfg)
+        outputs = {}
+        for b in batches:
+            for k in kernels:
+                k.launches = 0
+            feat = b["feat"]
+            outputs[feat.tobytes()] = frozen(feat, b["gt_seg_label"])
+            assert all(k.launches > 0 for k in kernels), [k.launches for k in kernels]
+
+        def recorded(feat, labels):
+            return outputs[feat.tobytes()]
+
+        plain = BdlDataEngine("cpu")
+        card._frozen = plain._frozen = recorded
+        for b in batches:
+            fps.fps.launches = 0
+            got = card(None, b, cfg)
+            assert fps.fps.launches == 1
+            want = plain(None, b, cfg)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key], err_msg=key)

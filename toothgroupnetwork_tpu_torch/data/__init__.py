@@ -1,7 +1,7 @@
 """Host data layer of the port: .obj parsing, vertex normals, the tgn
-inference scan prep, and the training dataset, batching and augmentation
-(numpy only; counterpart of the parts of toothgroupnetwork_tpu/data/ that
-the inference pipeline and training use)."""
+inference scan prep, the offline preprocessing (``preprocess``, whose FPS
+imports torch where it runs), and the training dataset, batching, case
+split and augmentation (numpy; counterpart of toothgroupnetwork_tpu/data/)."""
 
 from .augment import Augmentator, build_augmenter
 from .dataset import BatchLoader, DentalScanDataset, collate_batch

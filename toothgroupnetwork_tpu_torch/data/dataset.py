@@ -1,6 +1,6 @@
 """Dataset + host batching pipeline (the dataset, collation and loader of
-toothgroupnetwork_tpu/data/dataset.py, held bit-equal to them by the tests;
-its split-file maker belongs to the split CLI, not ported yet).
+toothgroupnetwork_tpu/data/dataset.py, held bit-equal to them by the tests,
+and its split-file maker, which the split CLI calls).
 
 Replaces the reference's ``DentalModelGenerator`` torch Dataset (reference:
 generator.py:10-71) and the DataLoader/collate in runner.py:7-50. Contracts preserved:
@@ -135,3 +135,29 @@ class BatchLoader:
                     batch[k] = np.concatenate(reps, axis=0)
             yield batch
 
+
+
+def make_split_files(processed_dir: str, out_dir: str, seed: int = 42,
+                     ratios=(0.8, 0.1, 0.1)) -> dict:
+    """Random case-level train/val/test split.
+
+    Case id = basename up to the first ``_``; both jaws of a case land in the same
+    split. Writes ``train_fold.txt`` / ``val_fold.txt`` / ``test_fold.txt``.
+    """
+    paths = sorted(glob(os.path.join(processed_dir, "*_sampled_points.npy")))
+    cases = sorted({os.path.basename(p).split("_")[0] for p in paths})
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(cases))
+    n = len(cases)
+    n_train = int(n * ratios[0])
+    n_val = int(n * ratios[1])
+    splits = {
+        "train_fold.txt": [cases[i] for i in order[:n_train]],
+        "val_fold.txt": [cases[i] for i in order[n_train:n_train + n_val]],
+        "test_fold.txt": [cases[i] for i in order[n_train + n_val:]],
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    for fname, ids in splits.items():
+        with open(os.path.join(out_dir, fname), "w") as f:
+            f.write("\n".join(ids) + ("\n" if ids else ""))
+    return splits

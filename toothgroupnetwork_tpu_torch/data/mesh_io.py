@@ -1,5 +1,6 @@
-"""Mesh IO for the inference scan prep: .obj parsing, area-weighted vertex
-normals, midpoint subdivision (counterpart of
+"""Mesh IO for the inference scan prep, the offline preprocessing and the
+boundary engine: .obj parsing, area-weighted vertex normals, the
+``[N, 6]`` feature array, midpoint subdivision (counterpart of
 toothgroupnetwork_tpu/data/mesh_io.py, same arithmetic).
 
 Vertex normals follow open3d's ``compute_vertex_normals``: unnormalised
@@ -62,6 +63,13 @@ def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarra
                 normals[:, c] += np.bincount(fc, weights=fn[:, c], minlength=n)
     norm = np.linalg.norm(normals, axis=1, keepdims=True)
     return np.divide(normals, norm, out=np.zeros_like(normals), where=norm > 0)
+
+
+def load_mesh_arr(path: str) -> np.ndarray:
+    """``[N, 6]`` float64 xyz + unit vertex normals of an .obj (the
+    preprocessing's and the boundary engine's feature layout)."""
+    vertices, faces = parse_obj(path)
+    return np.concatenate([vertices, compute_vertex_normals(vertices, faces)], axis=1)
 
 
 def subdivide_midpoint(vertices: np.ndarray, faces: np.ndarray,

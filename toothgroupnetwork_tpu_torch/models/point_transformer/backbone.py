@@ -150,7 +150,11 @@ class PointTransformerLayer(nn.Module):
              + pe.reshape(bn_, kk, -1)).reshape(bnk, -1)
         w = self.linear_w0(torch.relu(self.linear_w_bn0(w, flat_mask)))
         w = self.linear_w1(torch.relu(self.linear_w_bn1(w, flat_mask)))
-        w3 = torch.softmax(w.reshape(bn_, kk, -1), dim=1)
+        # the softmax step by step in the model dtype, each step rounded as
+        # the JAX graph rounds it (one fused softmax rounds only its output)
+        w3 = w.reshape(bn_, kk, -1)
+        ex = torch.exp(w3 - w3.amax(dim=1, keepdim=True))
+        w3 = ex / ex.sum(dim=1, keepdim=True)
         # channel c takes the weight of its group c % (C / share_planes)
         w_full = w3.repeat(1, 1, v_g.shape[-1] // w3.shape[-1])
         prod = (v_g + pe).reshape(bn_, kk, -1) * w_full

@@ -1,6 +1,7 @@
 """Model registry: name -> ModelTask (counterpart of
 toothgroupnetwork_tpu/models/registry.py): a module constructor, the loss
-computation and the preset config, consumed by the Trainer."""
+computation, the preset config and an optional host stage, consumed by the
+Trainer."""
 
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ class ModelTask:
     # extra forward kwargs drawn from the batch (tgnet crops around the
     # ground-truth centroids, so it needs the labels): batch -> kwargs
     forward_kwargs: Callable[[dict], dict] = field(default=lambda batch: {})
+    # optional host stage run before each step on the loader's numpy batch
+    # (its mesh_path and augmenter fields too), returning arrays that
+    # replace or join the batch's: (model, batch, config) -> dict. tgnet_bdl
+    # boundary-resamples each scan around a frozen fps model
+    # (train/bdl_engine.py)
+    host_stage: Callable | None = field(default=None)
 
 
 _REGISTRY: dict[str, ModelTask] = {}

@@ -126,11 +126,85 @@ def _tgnet_preset(name: str = "tgnet_fps") -> TrainConfig:
     )
 
 
+def _build_tgnet(config: TrainConfig, device) -> TGNet:
+    return build_tgnet_fps({"model_parameter": config.model_parameter}, device=device)
+
+
 register_task(ModelTask(
     name="tgnet_fps",
-    build_module=lambda config, device: build_tgnet_fps(
-        {"model_parameter": config.model_parameter}, device=device),
+    build_module=_build_tgnet,
     compute_losses=_tgnet_losses,
     default_config=_tgnet_preset,
     forward_kwargs=lambda batch: {"labels": batch["gt_seg_label"]},
+))
+
+
+# ---------------------------------------------------------------------------
+# tgnet_bdl: the boundary stage (train_configs/tgnet_bdl.py)
+# ---------------------------------------------------------------------------
+
+def _tgnet_bdl_preset() -> TrainConfig:
+    """The fps optimizer and losses; the smaller backbone (block_num 2,
+    stride [1, 1], planes [16, 32]); the boundary sampling and the frozen
+    fps model (its ``load_ckpt_path`` is needed for real training)."""
+    cfg = _tgnet_preset("tgnet_bdl")
+    cfg.model_parameter = {
+        "input_feat": 6,
+        "stride": [1, 1],
+        "nsample": [36, 24],
+        "blocks": [2, 3],
+        "block_num": 2,
+        "planes": [16, 32],
+        "crop_sample_size": 3072,
+        "n_points": 24000,
+        "boundary_sampling_info": {
+            "orginal_data_obj_path": None,
+            "orginal_data_json_path": None,
+            "bdl_cache_path": None,
+            "bdl_ratio": 0.7,
+            "num_of_bdl_points": 20000,
+            "num_of_all_points": 24000,
+        },
+        "fps_model_info": {
+            "model_parameter": None,  # defaults to the tgnet_fps preset
+            "load_ckpt_path": None,
+        },
+    }
+    return cfg
+
+
+# An engine keeps a frozen tgnet_fps model and the obj/json path maps, both
+# derived from the config: engines are kept by that config state (and the
+# device), so two configs in one process never share one.
+_BDL_ENGINES: dict = {}
+
+
+def _bdl_engine_key(config) -> str:
+    mp = config.model_parameter
+    return repr((mp.get("fps_model_info"), mp.get("boundary_sampling_info"),
+                 mp.get("n_points")))
+
+
+def bdl_engine(config, device):
+    """The boundary engine of ``config`` on ``device``, made on first use."""
+    key = (_bdl_engine_key(config), str(torch.device(device)))
+    if key not in _BDL_ENGINES:
+        from ..train.bdl_engine import BdlDataEngine
+
+        _BDL_ENGINES[key] = BdlDataEngine(device)
+    return _BDL_ENGINES[key]
+
+
+def _tgnet_bdl_host_stage(model, batch, config):
+    device = next(model.parameters()).device
+    return bdl_engine(config, device)(model, batch, config)
+
+
+register_task(ModelTask(
+    name="tgnet_bdl",
+    build_module=_build_tgnet,
+    compute_losses=_tgnet_losses,
+    default_config=_tgnet_bdl_preset,
+    forward_kwargs=lambda batch: {"labels": batch["gt_seg_label"]},
+    host_stage=_tgnet_bdl_host_stage,
 ))

@@ -6,7 +6,10 @@ The JAX package's loop contract on one device: epochs of ``train_epoch`` and
 the latest and best-val checkpoint slots, ``resume``, and the elastic retry
 that restores the last checkpoint after a failed epoch. The step is the
 explicit function :func:`train_step`; the validation pass runs the model in
-eval mode, so its attention layers run the kernel K3.
+eval mode, so its attention layers run the kernel K3. A task's host stage
+(tgnet_bdl's boundary resampling) runs on the loader's numpy batch before
+each train and val step (:meth:`Trainer.host_batch`), after a padded val
+batch lost its padding.
 
 The data-parallel layer is not ported yet: ``data_parallel > 1`` raises.
 """
@@ -126,6 +129,17 @@ class Trainer:
             except Exception as e:  # wandb is optional: log and go on without it
                 self.log(f"wandb disabled: {e!r}")
 
+    def host_batch(self, batch: dict) -> dict:
+        """The batch with the task's host stage applied: the stage gets the
+        loader's numpy arrays (a mask of ones where there is none) and its
+        other fields, and the arrays it returns replace the batch's."""
+        if self.task.host_stage is None:
+            return batch
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        arrays.setdefault("mask", np.ones(arrays["feat"].shape[:2], dtype=bool))
+        host = {**batch, **arrays}
+        return {**host, **self.task.host_stage(self.model, host, self.config)}
+
     def device_batch(self, batch: dict) -> dict:
         """The batch's arrays as tensors on the device (a mask of ones where
         the batch has none); other fields dropped."""
@@ -149,7 +163,7 @@ class Trainer:
             n_batches = -1  # unsized loader: no epoch-end fallback fire
         for batch_idx, batch in enumerate(self.train_loader):
             values = train_step(self.model, self.optimizer, self.task, self.config,
-                                self.device_batch(batch))
+                                self.device_batch(self.host_batch(batch)))
             self.step += 1
             weighted = self._weighted(values, "step")
             meter.aggr(weighted)
@@ -189,7 +203,7 @@ class Trainer:
             else:
                 n_valid = len(batch["feat"])
             values = eval_step(self.model, self.task, self.config,
-                               self.device_batch(batch))
+                               self.device_batch(self.host_batch(batch)))
             meter.aggr(self._weighted(values, "val"), weight=n_valid)
         return meter.get_avg_results()
 
