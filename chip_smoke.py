@@ -23,7 +23,9 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      (K1 with its cluster size and microseconds a step, beside its chain
      floor: the per-step exchange alone over 24000 steps on 16 CTAs, K1's
      and the cluster-barrier design's; K2 also on the first cloud spatially
-     sorted; the cell-attention kernels K4/K5/K6 on a spatially sorted
+     sorted; K2's general-C route at DGCNN's self-kNN shapes, C = 6 and
+     64, identical to its plain version; K1 at the PointNet++ SA shapes;
+     the cell-attention kernels K4/K5/K6 on a spatially sorted
      24000-point sheet; K7 and K8 at the crop and full-cloud shapes; the
      bfloat16 variants of K3, K4 and K6 against their bfloat16 twins);
   4. full-width fps model, stage 1 over a 24000-point cloud: the kernels on
@@ -71,7 +73,17 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      case, the engine identical with K1's plain version, the bdl step on
      the card against the CPU port's and repeated bit for bit, then the
      exported weights serving one case through ``cli.infer`` and
-     ``cli.evaluate`` printing what ``cal_metric`` gives.
+     ``cli.evaluate`` printing what ``cal_metric`` gives;
+ 12. the families: pointnet, pointnetpp, dgcnn, pointtransformer and
+     tsegnet, each at its preset's full width with random weights (the
+     classifier centred on the scan; tsegnet's centroid heads fitted so that
+     DBSCAN finds clusters and its paint logit centred), one synthetic
+     100489-vertex scan through ``cli.infer --model_name`` (each family's
+     kernels launched, none of K4-K8; DGCNN's K2 at C = 6 once and C = 64
+     twice), the challenge JSON checked, a repeated scan identical, steady
+     seconds a scan by phase, peak memory, one profiled call's busy share,
+     and the forward on the card against the CPU port (DGCNN at 6000
+     points).
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -105,7 +117,11 @@ FPS_SHAPES = ((1, 24000, 6000, None),           # B, N, samples, valid points
               (16, 3072, 768, None),
               (1, 106496, 24000, 100489),       # mesh prep, padded to 8192s
               (1, 100489, 24000, None),         # mesh prep as the port runs it
-              (1, 84000, 8000, None))           # a boundary fill
+              (1, 84000, 8000, None),           # a boundary fill
+              # the PointNet++ SA stages of pointnetpp and tsegnet's
+              # centroid module, then tsegnet's 16 crops of 3072
+              (1, 24000, 1024, None), (1, 1024, 512, None), (1, 512, 256, None),
+              (16, 3072, 1024, None), (16, 1024, 512, None), (16, 512, 256, None))
 KNN_SHAPES = ((1, 24000, 24000, 36, True, False),   # B, M, N, k, self-query,
               (16, 3072, 3072, 36, True, False),    # spatially sorted
               (1, 6000, 24000, 24, False, False),
@@ -115,6 +131,9 @@ KNN_SHAPES = ((1, 24000, 24000, 36, True, False),   # B, M, N, k, self-query,
               (1, 375, 24000, 16, False, False),
               (1, 93, 24000, 64, False, False),
               (16, 48, 3072, 64, False, False))
+# K2's general-C route: DGCNN's EdgeConv self-kNN in feature space
+# (B, N, k, C): the xyz + normals input, then the 64-channel features
+KNN_C_SHAPES = ((1, 24000, 20, 6), (1, 24000, 20, 64))
 FPS_CHAIN = (24000, 16)   # K1's chain floor: steps, cluster size
 # K3: every (B, N, K, C) one scan gives it: the fps model's stage 1 and
 # its deeper stages (24000 -> 6000 -> 1500 -> 375 -> 93 points), its 16 crops
@@ -404,6 +423,25 @@ def phase_kernels(dev, gen):
                     moved=nbytes(pts, gi, gd) + (0 if self_q else nbytes(qry)),
                     rows_differ=int(row_bad.sum()),
                     near_tie_rows=int(near_tie.sum()))
+
+    # K2's general-C route: identical indices and d2 (the kernel sums the
+    # channels in the plain version's order). Each (query, point) pair:
+    # C mul and C - 1 add for the cross term, the doubling, a sub and an
+    # add of |p|^2, 1 compare: 2C + 3
+    for b, n, k, c in KNN_C_SHAPES:
+        x = cloud(b, n, c)
+        gi, gd = knn.knn_select(x, x, k)
+        ri, rd = knn.knn_select_reference(x, x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, ri) and torch.equal(gd, rd)):
+            raise AssertionError(f"K2 knn C={c} [{b},{n}] k={k}: "
+                                 f"{int((gi != ri).any(dim=-1).sum())} rows differ")
+        rec_knn.add(f"[{b},{n}] C={c} k={k} self", 0.0,
+                    cuda_ms(lambda: knn.knn_select(x, x, k), 3),
+                    cuda_ms(lambda: knn.knn_select_reference(x, x, k), 1),
+                    ops=(2.0 * c + 3.0) * b * n * n, moved=nbytes(x, gi, gd),
+                    device_ms=graph_ms(lambda: knn.knn_select(x, x, k), 3),
+                    identical=True)
 
     # K3: max |kernel - plain| <= 1e-4 in float32 (other summation order);
     # in bfloat16 (bf16 rows, q and out) within one bf16 ulp of the output.
@@ -1630,6 +1668,264 @@ def phase_workflow(dev, work: Path, ckpts) -> dict:
             "per_host_stage_case": host_launches}
 
 
+# the families phase: the five other model families through cli.infer, each
+# at its preset's full width, with the kernels each must launch; DGCNN's
+# CPU reference runs at this many points (its plain O(N^2 C) selection)
+FAMILIES = ("pointnet", "pointnetpp", "dgcnn", "pointtransformer", "tsegnet")
+FAMILY_KERNELS = {
+    "pointnet": ("fps",),
+    "pointnetpp": ("fps", "knn_select"),
+    "dgcnn": ("fps", "knn_select"),
+    "pointtransformer": ("fps", "knn_select", "fused_vector_attention_packed_x",
+                         "project_kv"),
+    "tsegnet": ("fps", "knn_select"),
+}
+DGCNN_CPU_POINTS = 6000
+FAMILY_STEADY_CALLS = 3
+# tsegnet's proposals: the l3 points split into this many runs along x
+TSEGNET_GROUPS = 12
+# each semantic family's classifier, the last Dense before the logits
+CLASSIFIER = {"pointnet": "cls", "pointnetpp": "cls_2", "dgcnn": "cls",
+              "pointtransformer": "cls_head.cls"}
+
+
+def centre_classifier(model, name: str, feat: torch.Tensor) -> None:
+    """Re-centre the classifier on one input: ``W -= outer(mu, h) / |h|^2``
+    with ``h`` its mean input over the points and ``mu`` the mean logits,
+    so every class's mean logit on ``feat`` is 0. Random weights otherwise
+    give every point of a smooth sheet the same class, and the card-vs-CPU
+    agreement would compare one class."""
+    layer = model.get_submodule(CLASSIFIER[name])
+    seen = {}
+    hook = layer.register_forward_pre_hook(lambda _m, a: seen.update(h=a[0]))
+    with torch.no_grad():
+        logits = model(feat, None)["cls_pred"]
+        hook.remove()
+        h = seen["h"].reshape(-1, seen["h"].shape[-1]).double().mean(0)
+        mu = logits.reshape(-1, logits.shape[-1]).double().mean(0)
+        layer.weight -= (torch.outer(mu, h) / (h @ h)).float()
+
+
+def fit_tsegnet(model, pipe_cls, feat: torch.Tensor, scan: Path, dev, gen) -> None:
+    """Fit tsegnet's centroid heads to the scan's sample ``feat`` so that
+    DBSCAN finds TSEGNET_GROUPS clusters (the l3 points sorted by x, split
+    into runs, each run's moved points within 0.004 of the run's mean, every
+    distance 0.1: the heads' BatchNorm biases +5, the last Dense of each
+    head the least-squares fit over its input), then centre the paint logit
+    on the valid crops' points (about half of each crop painted). Random
+    heads otherwise scatter the moved points and DBSCAN finds nothing. The
+    id head (``fc2``) is centred on the valid crops as the semantic
+    classifiers are (``centre_classifier``), so the crops take other ids."""
+    cm = model.cent_module
+    seen = {}
+    hooks = [getattr(cm, n).register_forward_pre_hook(
+        lambda _m, a, n=n: seen.update({n: a[0]})) for n in ("offset_2", "dist_2")]
+    with torch.no_grad():
+        cm.offset_bn.bias += 5.0
+        cm.dist_bn.bias += 5.0
+        out = model.centroid_forward(feat)
+        for h in hooks:
+            h.remove()
+        xyz = out["l3_xyz"][0].double().cpu().numpy()
+        target = np.empty_like(xyz)
+        for run in np.array_split(np.argsort(xyz[:, 0], kind="stable"),
+                                  TSEGNET_GROUPS):
+            target[run] = xyz[run].mean(0) + gen.uniform(-0.004, 0.004, (len(run), 3))
+        for n, want in (("offset_2", target - xyz),
+                        ("dist_2", np.full((len(xyz), 1), 0.1))):
+            r = seen[n][0].double().cpu().numpy()
+            sol = np.linalg.lstsq(np.concatenate([r, np.ones((len(r), 1))], 1),
+                                  want, rcond=None)[0]
+            layer = getattr(cm, n)
+            layer.weight.copy_(torch.from_numpy(sol[:-1].T.astype(np.float32)))
+            layer.bias.copy_(torch.from_numpy(sol[-1].astype(np.float32)))
+    seg = model.seg_module
+    pipe = pipe_cls(None, module=model, device=dev)
+    hooks = [seg.pd_mask_2.register_forward_hook(lambda _m, _a, o: seen.update(pd_2=o)),
+             seg.fc2.register_forward_hook(lambda _m, a, o: seen.update(idh=a[0], ids=o))]
+    pipe(str(scan))
+    for h in hooks:
+        h.remove()
+    n_valid = pipe.last_stats["clusters"]
+    with torch.no_grad():
+        seg.pd_mask_2.bias -= seen["pd_2"][:n_valid].double().mean().float()
+        h = seen["idh"][:n_valid].double().mean(0)
+        mu = seen["ids"][:n_valid].double().mean(0)
+        seg.fc2.weight -= (torch.outer(mu, h) / (h @ h)).float()
+
+
+def phase_families(dev, work: Path, scan: Path) -> dict:
+    """The five other families, each at its preset's full width with random
+    weights (``randomize_``, the zero-initialised heads drawn too; the
+    classifier centred, tsegnet's heads fitted to the scan) saved with
+    ``save_npz``: the scan through ``cli.infer --model_name`` on the card
+    with every count at 0 just before (the kernels of FAMILY_KERNELS must
+    launch, none of K4-K8), the challenge JSON checked, a repeated scan
+    identical, steady seconds a scan by phase, peak memory, one profiled
+    call's busy share, and the full-width forward on the card against the
+    CPU port (argmax agreement >= 0.999; DGCNN at DGCNN_CPU_POINTS points;
+    tsegnet its proposals, paint decisions and ids). Returns each family's
+    launches a scan."""
+    from toothgroupnetwork_tpu_torch.cli import infer
+    from toothgroupnetwork_tpu_torch.models.tasks import (_tsegnet_preset,
+                                                          build_sem_model,
+                                                          build_tsegnet)
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.ops.kernels import (attention, cell_select,
+                                                         fps, gather, knn)
+    from toothgroupnetwork_tpu_torch.pipelines import (ScanSegmentation,
+                                                       TsegnetInferencePipeline)
+    from toothgroupnetwork_tpu_torch.pipelines.base import (prep_mesh_feats,
+                                                            sample_on_device)
+    from toothgroupnetwork_tpu_torch.utils.weights import (load_npz, randomize_,
+                                                           save_npz)
+
+    kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x,
+               attention.project_kv)
+    unused = (cell_select.cell_select_x, cell_select.cell_select_p,
+              attention.fused_vector_attention, attention.fused_vector_attention_packed,
+              gather.onehot_gather_packed)
+    t_phase = time.perf_counter()
+    scan_dir = work / "families_scan"
+    scan_dir.mkdir()
+    (scan_dir / scan.name).write_bytes(scan.read_bytes())
+    _, feats = prep_mesh_feats(str(scan), N_POINTS)
+    sample, _ = sample_on_device(feats, N_POINTS, dev)
+    sample = sample[None]
+    gen = torch.Generator().manual_seed(9)
+    np_gen = np.random.default_rng(9)
+    per_scan = {}
+    for name in FAMILIES:
+        t_family = time.perf_counter()
+        if name == "tsegnet":
+            cfg = {"model_parameter": _tsegnet_preset().model_parameter}
+            model = randomize_(build_tsegnet(cfg, device="cpu"), gen).to(dev)
+            fit_tsegnet(model, TsegnetInferencePipeline, sample, scan, dev, np_gen)
+        else:
+            mp = get_task(name).default_config().model_parameter
+            model = randomize_(build_sem_model(name, mp, device="cpu"), gen).to(dev)
+            centre_classifier(model, name, sample)
+        ckpt = work / f"{name}.npz"
+        save_npz(str(ckpt), model)
+
+        # the main path: cli.infer on the card
+        for k in (*kernels, *unused):
+            k.launches = 0
+        knn.knn_select.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = infer.main(["--input_dir_path", str(scan_dir), "--save_path",
+                           str(work / f"out_{name}"), "--model_name", name,
+                           "--checkpoint_path", str(ckpt), "--device", str(dev)])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in (*kernels, *unused)}
+        knn_by_c = dict(knn.knn_select.launches_by_shape)
+        per_scan[name] = {k: v for k, v in launches.items() if v}
+        missing = [k for k in FAMILY_KERNELS[name] if launches[k] <= 0]
+        stray = [k.__name__ for k in unused if launches[k.__name__]]
+        if missing or stray:
+            raise AssertionError(f"{name}: kernels not launched {missing}, "
+                                 f"launched off the path {stray}")
+        if name == "dgcnn" and knn_by_c != {6: 1, 64: 2}:
+            raise AssertionError(f"dgcnn: K2 launches by C {knn_by_c}, expected "
+                                 "C=6 once and C=64 twice")
+        res = json.loads((work / f"out_{name}" / (scan.stem + ".json")).read_text())
+        n_vert = sum(1 for line in scan.open() if line.startswith("v "))
+        labels = res["labels"]
+        if (len(labels) != n_vert or len(res["instances"]) != n_vert
+                or not set(labels) <= FDI or res["jaw"] not in ("upper", "lower")):
+            raise AssertionError(f"{name}: bad challenge JSON ({len(labels)} labels "
+                                 f"for {n_vert} vertices, {sorted(set(labels))[:8]})")
+
+        # a repeated scan: the same output; then steady calls
+        again, _, _ = ScanSegmentation(pipe).predict([str(scan)])
+        if again != labels:
+            raise AssertionError(f"{name}: a repeated scan gave another output")
+        calls = []
+        for _ in range(FAMILY_STEADY_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe(str(scan))
+            torch.cuda.synchronize()
+            calls.append({"wall_s": time.perf_counter() - t0, **pipe.timings})
+        torch.cuda.reset_peak_memory_stats(dev)
+        pipe(str(scan))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        busy = profile_call(lambda: pipe(str(scan)), f"family {name}")
+
+        # the full-width forward on the card against the CPU port
+        cpu_model = (build_tsegnet(cfg, device="cpu") if name == "tsegnet" else
+                     build_sem_model(name, mp, device="cpu"))
+        load_npz(str(ckpt), cpu_model).eval()
+        t0 = time.perf_counter()
+        agree = family_card_vs_cpu(name, pipe, cpu_model, sample, dev)
+        cpu_s = time.perf_counter() - t0
+        keys = calls[0].keys()
+        log("family", model=name, first_scan_s=first_s,
+            steady_median_s={k: float(np.median([c[k] for c in calls])) for k in keys},
+            launches_per_scan=per_scan[name], knn_launches_by_c=knn_by_c,
+            labels=sorted(set(labels)), peak_gib=peak / 2 ** 30, busy_share=busy,
+            card_vs_cpu=agree, cpu_reference_s=cpu_s,
+            stats=getattr(pipe, "last_stats", None),
+            family_s=time.perf_counter() - t_family)
+        if len(set(labels)) < 2:
+            raise AssertionError(f"{name}: one label on the whole scan {set(labels)}")
+        del pipe, model, cpu_model
+        torch.cuda.empty_cache()
+    log("families", seconds=time.perf_counter() - t_phase, launches_per_scan=per_scan)
+    return per_scan
+
+
+def family_card_vs_cpu(name, pipe, cpu_model, sample, dev) -> dict:
+    """The family's forward on the card (the served model) and on the CPU
+    (the same weights, the plain kernel versions) from the same sample:
+    argmax agreement >= 0.999. DGCNN compares its first DGCNN_CPU_POINTS
+    points; tsegnet its proposals (the same count, centres within 1e-3),
+    then the paint decisions over the valid crops and the crop ids on the
+    card's proposals."""
+    from toothgroupnetwork_tpu_torch.models.tsegnet import tsegnet_crops
+
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        if name != "tsegnet":
+            x = sample[:, :DGCNN_CPU_POINTS] if name == "dgcnn" else sample
+            card = pipe.model(x, None)["cls_pred"].float().cpu()
+            ref = cpu_model(x.cpu(), None)["cls_pred"]
+            agree = float((card.argmax(-1) == ref.argmax(-1)).float().mean())
+            out = {"points": x.shape[1], "argmax_agreement": agree,
+                   "max_abs_dlogit": float((card - ref).abs().max())}
+            if agree < 0.999:
+                raise AssertionError(f"{name}: card vs CPU argmax agreement {agree}")
+            return out
+        props = []
+        for model, d in ((pipe.module, dev), (cpu_model, cpu)):
+            c = model.centroid_forward(sample.to(d))
+            props.append((c, pipe.proposals(*(t.cpu().numpy() for t in (
+                c["l3_xyz"][0], c["offset_result"][0], c["dist_result"][0, :, 0])))))
+        (c_card, (cents, valid)), (c_cpu, (cents_cpu, valid_cpu)) = props
+        d_cent = float(np.abs(cents[valid] - cents_cpu[valid_cpu]).max()) \
+            if valid.sum() == valid_cpu.sum() else float("inf")
+        seg = []
+        for model, c, d in ((pipe.module, c_card, dev), (cpu_model, c_cpu, cpu)):
+            crop, crop_mask, _ = tsegnet_crops(
+                sample.to(d), c["l0_points"], torch.from_numpy(cents).to(d),
+                torch.from_numpy(valid).to(d), pipe.crop_size)
+            _, _, pd_2, id_pred = model.seg_forward(crop, crop_mask)
+            seg.append(((pd_2[..., 0] > 0).cpu()[:int(valid.sum())],
+                        id_pred.argmax(-1).cpu()[:int(valid.sum())]))
+        paint_agree = float((seg[0][0] == seg[1][0]).float().mean())
+        ids_equal = bool(torch.equal(seg[0][1], seg[1][1]))
+        out = {"proposals": int(valid.sum()), "proposals_cpu": int(valid_cpu.sum()),
+               "max_abs_dcentre": d_cent, "paint_agreement": paint_agree,
+               "ids_equal": ids_equal}
+        if not (d_cent <= 1e-3 and paint_agree >= 0.999 and ids_equal
+                and valid.sum() >= 2):
+            raise AssertionError(f"tsegnet: card vs CPU {out}")
+        return out
+
+
 def step_phases(model, opt, task, cfg, batch) -> dict:
     """The seconds of one train step's phases, as ``train_step`` runs them
     (deterministic algorithms on), each ended by a synchronise: the
@@ -1755,6 +2051,7 @@ def main() -> int:
         phase_serve_many(pipes, work, base + cell + entry)
         train = phase_train(dev, work, ckpts, scans[0])
         workflow = phase_workflow(dev, work, ckpts)
+        families = phase_families(dev, work, scans[1])
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
@@ -1772,6 +2069,9 @@ def main() -> int:
         rec.entry["bdl_val_launches_per_scan"] = workflow["per_bdl_val_scan"].get(name, 0)
         rec.entry["host_stage_launches_per_case"] = workflow["per_host_stage_case"].get(
             name, 0)
+        # the families (phase 12): each family's launches a scan
+        rec.entry["family_launches_per_scan"] = {
+            family: seen.get(name, 0) for family, seen in families.items()}
     # each K3 shape with its launches a scan, per configuration
     for row in records[2].entry["shapes"]:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)

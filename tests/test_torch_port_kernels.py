@@ -196,6 +196,36 @@ class TestKernelsOnCard:
         assert torch.equal(gi, ri) and torch.equal(gd, rd)
         assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
 
+    @pytest.mark.parametrize("k", [1, 20, 33, 64])
+    @pytest.mark.parametrize("c", [6, 35, 64])
+    def test_knn_general_c(self, cuda_device, gen, c, k):
+        """K2's general-C route (``tgn_knn_c``; DGCNN's feature space) equal
+        to its twin, indices and d2 bit for bit: a masked self-query over
+        several candidate tiles, M != N, exact duplicate rows, and the
+        k > n tail beside masked points. Each launch counts under its C."""
+        before = knn.knn_select.launches_by_shape.get(c, 0)
+        pts = _cloud(gen, 2, 2500, c, device=cuda_device)
+        bias = torch.where(torch.from_numpy(gen.random((2, 2500)) > 0.3),
+                           0.0, 1e10).to(torch.float32).to(cuda_device)
+        uniq = _cloud(gen, 1, 200, c, device=cuda_device)
+        dup = uniq[:, torch.from_numpy(gen.integers(0, 200, 1500)).to(
+            cuda_device)].contiguous()
+        few = _cloud(gen, 2, 10, c, device=cuda_device)
+        few_bias = torch.zeros((2, 10), device=cuda_device)
+        few_bias[:, ::3] = 1e10
+        cases = ((pts, pts, bias), (_cloud(gen, 2, 300, c, device=cuda_device),
+                                    pts, None),
+                 (dup, dup, None), (_cloud(gen, 2, 50, c, device=cuda_device),
+                                    few, few_bias))
+        for qry, p, b in cases:
+            gi, gd = knn.knn_select(qry, p, k, b)
+            ri, rd = knn.knn_select_reference(qry, p, k, b)
+            torch.cuda.synchronize()
+            assert torch.equal(gi, ri) and torch.equal(gd, rd)
+        if k > 10:
+            assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
+        assert knn.knn_select.launches_by_shape[c] == before + len(cases)
+
     @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 500, 36, 16),
                                           (1, 93, 24, 512), (2, 64, 36, 512),
                                           (2, 300, 10, 16)] + MAIN_PATH_K3)

@@ -1,10 +1,14 @@
 """Inference CLI: walk a directory of scans, run the pipeline on ``--device``,
 write one challenge JSON per scan (counterpart of
-toothgroupnetwork_tpu/cli/infer.py).
+toothgroupnetwork_tpu/cli/infer.py). ``--model_name`` is any of the six
+names ``make_inference_pipeline`` takes: tgnet (two checkpoints), pointnet,
+pointnetpp, dgcnn, pointtransformer or tsegnet (one).
 
     python -m toothgroupnetwork_tpu_torch.cli.infer --input_dir_path scans \\
         --save_path out --model_name tgnet --checkpoint_path fps.npz \\
         --checkpoint_path_bdl bdl.npz
+    python -m toothgroupnetwork_tpu_torch.cli.infer --input_dir_path scans \\
+        --save_path out --model_name dgcnn --checkpoint_path dgcnn.npz
 """
 
 import argparse

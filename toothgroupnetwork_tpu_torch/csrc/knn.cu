@@ -211,6 +211,125 @@ knn_kernel(const float* __restrict__ q, const float* __restrict__ p,
     }
 }
 
+// The general-C route (any C != 3, 1 <= C <= kMaxC): the same contract and
+// the same warp selection, with the distance accumulated channel by channel
+// in the plain twin's order (ops/distance.py:_dot_fixed: ((a0*b0 + a1*b1) +
+// a2*b2) + ..., each product and sum rounded to nearest), so kernel and twin
+// stay bit-equal. DGCNN's EdgeConv selects in feature space at C = 6 and 64
+// (toothgroupnetwork_tpu/models/dgcnn.py:23-30), as knn_pallas_select's
+// [tq, c] blocks allow any C. A block of kWarpsC queries keeps its query rows
+// and one tile of `tile` candidates in dynamic shared memory, the tile
+// transposed ([c][tile + 1], the odd stride keeping the loads and the
+// per-lane reads free of bank conflicts) beside each candidate's |p|^2 and
+// bias; `tile` is the largest multiple of 32 (at most 1024) that fits 48 KB.
+// What bounds it: the (2C + 3) operations a pair and the shared-memory reads
+// feeding them (one broadcast query value a channel, reused over kUnroll
+// candidates a lane). No seed window: feature space has no index locality.
+constexpr int kWarpsC = 8;
+constexpr int kSmemFloatsC = 12288;   // 48 KB: no opt-in attribute needed
+constexpr int kMaxC = 256;
+
+__host__ __device__ inline int knn_tile_c(int c) {
+    int t = (kSmemFloatsC - (kWarpsC + 1) * c) / (c + 2);
+    t = t / 32 * 32;
+    return t < 1024 ? t : 1024;
+}
+
+__device__ __forceinline__ float dot_rn(const float* a, const float* b, int c) {
+    float acc = __fmul_rn(a[0], b[0]);
+    for (int i = 1; i < c; ++i) acc = __fadd_rn(acc, __fmul_rn(a[i], b[i]));
+    return acc;
+}
+
+__global__ void __launch_bounds__(kWarpsC * 32)
+knn_kernel_c(const float* __restrict__ q, const float* __restrict__ p,
+             const float* __restrict__ bias, int m, int n, int c, int k, int tile,
+             int* __restrict__ out_idx, float* __restrict__ out_d2) {
+    extern __shared__ float smem[];
+    const int ts = tile + 1;
+    float* s_q = smem;                         // [kWarpsC][c]
+    float* s_p = s_q + kWarpsC * c;            // [c][ts], candidates transposed
+    float* s_p2 = s_p + (size_t)c * ts;        // [tile] |p|^2
+    float* s_b = s_p2 + tile;                  // [tile] bias
+    const size_t b = blockIdx.y;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int row = blockIdx.x * kWarpsC + warp;
+    const bool active = row < m;   // warp-uniform; idle warps still load tiles
+    q += b * (size_t)m * c;
+    p += b * (size_t)n * c;
+    if (bias != nullptr) bias += b * (size_t)n;
+
+    for (int i = threadIdx.x; i < kWarpsC * c; i += blockDim.x) {
+        const int r = blockIdx.x * kWarpsC + i / c;
+        s_q[i] = r < m ? q[(size_t)blockIdx.x * kWarpsC * c + i] : 0.f;
+    }
+    __syncthreads();
+    const float* qr = s_q + warp * c;
+    const float q2 = dot_rn(qr, qr, c);
+
+    WarpList list;
+    list.init();
+    for (int base = 0; base < n; base += tile) {
+        const int len = min(tile, n - base);
+        __syncthreads();
+        for (int i = threadIdx.x; i < len * c; i += blockDim.x) {
+            const int t = i / c;
+            s_p[(i - t * c) * ts + t] = p[(size_t)base * c + i];
+        }
+        __syncthreads();
+        for (int t = threadIdx.x; t < len; t += blockDim.x) {
+            float acc = __fmul_rn(s_p[t], s_p[t]);
+            for (int ch = 1; ch < c; ++ch) {
+                const float v = s_p[ch * ts + t];
+                acc = __fadd_rn(acc, __fmul_rn(v, v));
+            }
+            s_p2[t] = acc;
+            s_b[t] = bias != nullptr ? bias[base + t] : 0.f;
+        }
+        __syncthreads();
+        if (!active) continue;
+        for (int t0 = 0; t0 < len; t0 += 32 * kUnroll) {
+            float acc[kUnroll];
+            int tt[kUnroll];
+            bool ok[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int t = t0 + 32 * u + lane;
+                ok[u] = t < len;
+                tt[u] = ok[u] ? t : 0;
+                acc[u] = __fmul_rn(qr[0], s_p[tt[u]]);
+            }
+            for (int ch = 1; ch < c; ++ch) {
+                const float qv = qr[ch];
+                const float* col = s_p + ch * ts;
+#pragma unroll
+                for (int u = 0; u < kUnroll; ++u) {
+                    acc[u] = __fadd_rn(acc[u], __fmul_rn(qv, col[tt[u]]));
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const float e = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, acc[u])),
+                                          s_p2[tt[u]]);
+                const float d = __fadd_rn(fmaxf(e, 0.f), s_b[tt[u]]);
+                list.offer(ok[u], d, base + tt[u], k, lane);
+            }
+        }
+    }
+    if (!active) return;
+    int* oi = out_idx + (b * (size_t)m + row) * k;
+    float* od = out_d2 + (b * (size_t)m + row) * k;
+    if (lane < k) {
+        oi[lane] = lane < n ? list.ai : 0;
+        od[lane] = lane < n ? list.ad : 1e10f;
+    }
+    if (lane + 32 < k) {
+        oi[lane + 32] = lane + 32 < n ? list.bi : 0;
+        od[lane + 32] = lane + 32 < n ? list.bd : 1e10f;
+    }
+}
+
 }  // namespace
 
 // q [B, M, 3], p [B, N, 3] f32; bias [B, N] f32 or null; out_idx [B, M, k]
@@ -221,5 +340,21 @@ extern "C" int tgn_knn(const float* q, const float* p, const float* bias, int b,
     if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
     dim3 grid((m + kWarps - 1) / kWarps, b);
     knn_kernel<<<grid, kWarps * 32, 0, stream>>>(q, p, bias, m, n, k, out_idx, out_d2);
+    return (int)cudaGetLastError();
+}
+
+// q [B, M, C], p [B, N, C] f32 (1 <= C <= kMaxC); bias [B, N] f32 or null;
+// out_idx [B, M, k] int32, out_d2 [B, M, k] f32. Returns cudaGetLastError()
+// after the launch.
+extern "C" int tgn_knn_c(const float* q, const float* p, const float* bias, int b,
+                         int m, int n, int c, int k, int* out_idx, float* out_d2,
+                         cudaStream_t stream) {
+    if (k < 1 || k > kMaxK || c < 1 || c > kMaxC) return (int)cudaErrorInvalidValue;
+    const int tile = knn_tile_c(c);
+    const size_t smem = ((size_t)kWarpsC * c + (size_t)c * (tile + 1) + 2 * (size_t)tile)
+                        * sizeof(float);
+    dim3 grid((m + kWarpsC - 1) / kWarpsC, b);
+    knn_kernel_c<<<grid, kWarpsC * 32, smem, stream>>>(q, p, bias, m, n, c, k, tile,
+                                                        out_idx, out_d2);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,10 @@
-"""tgnet model presets and the tgnet_fps training task (counterpart of the
-tgnet parts of toothgroupnetwork_tpu/models/tasks.py). The constructors take
-plain dicts with a ``model_parameter``; the task's preset is the port's
-``TrainConfig`` (train/config.py)."""
+"""Model presets and tasks (counterpart of
+toothgroupnetwork_tpu/models/tasks.py): the tgnet models and their training
+tasks, and the other families' presets and tasks (pointnet, pointnetpp,
+dgcnn and pointtransformer, 17-way CE only; tsegnet's module and preset,
+whose training task comes with its losses). The constructors take a
+``model_parameter`` dict (or a dict holding one); a task's preset is the
+port's ``TrainConfig`` (train/config.py)."""
 
 from __future__ import annotations
 
@@ -12,8 +15,13 @@ import torch
 from ..losses import (batch_center_offset_loss, batch_chamfer_distance_loss,
                       cbl_loss, tooth_class_loss)
 from ..train.config import OptimizerConfig, SchedulerConfig, TrainConfig
+from .dgcnn import DGCNNSeg
+from .point_transformer import PointTransformerSeg
+from .pointnet import PointNetSeg
+from .pointnetpp import PointNetPPSeg
 from .registry import ModelTask, register_task
 from .tgnet import TGNet, binary_crop_labels, half_arch_labels
+from .tsegnet import TSegNetModule
 
 # model_parameter["dtype"] -> the backbone's compute dtype (tasks.py:
 # _pt_backbone_params); parameters, geometry and logits stay float32
@@ -52,15 +60,19 @@ def backbone_kwargs(mp: dict) -> dict:
     )
 
 
-def build_tgnet_fps(cfg: dict, *, device) -> TGNet:
-    mp = cfg["model_parameter"]
+def _dtype(mp: dict) -> torch.dtype:
     name = mp.get("dtype", "float32")
     if name not in DTYPES:
         raise NotImplementedError(f"model_parameter dtype {name!r}: the port "
                                   f"serves {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def build_tgnet_fps(cfg: dict, *, device) -> TGNet:
+    mp = cfg["model_parameter"]
     return TGNet(crop_size=mp.get("crop_sample_size", 3072),
                  cell_attention=bool(mp.get("cell_attention", False)),
-                 **backbone_kwargs(mp), device=device, dtype=DTYPES[name])
+                 **backbone_kwargs(mp), device=device, dtype=_dtype(mp))
 
 
 def build_tgnet_bdl(crop_size: int, arch: dict | None = None, *, device) -> TGNet:
@@ -208,3 +220,107 @@ register_task(ModelTask(
     forward_kwargs=lambda batch: {"labels": batch["gt_seg_label"]},
     host_stage=_tgnet_bdl_host_stage,
 ))
+
+
+# ---------------------------------------------------------------------------
+# the semantic families: pointnet, pointnetpp, dgcnn, pointtransformer
+# (17-way CE only; train_configs/pointnet.py etc.)
+# ---------------------------------------------------------------------------
+
+def _ce_losses(outputs, batch, config: TrainConfig) -> dict:
+    w = config.loss_weights.get("tooth_class_loss_1", 1.0)
+    loss = tooth_class_loss(outputs["cls_pred"], batch["gt_seg_label"], 17,
+                            batch.get("mask"))
+    return {"tooth_class_loss_1": (loss, w)}
+
+
+def _adam_preset(model_name: str) -> TrainConfig:
+    """adam lr 1e-3, wd 1e-4, cosine 40, min_lr 1e-5."""
+    return TrainConfig(
+        model_name=model_name,
+        optimizer=OptimizerConfig(name="adam", lr=1e-3, weight_decay=1e-4),
+        scheduler=SchedulerConfig(sched="cosine", full_steps=40, min_lr=1e-5),
+        loss_weights={"tooth_class_loss_1": 1.0},
+    )
+
+
+def _pt_backbone_params(mp: dict) -> dict:
+    """model_parameter -> PointTransformerSeg kwargs, with the compute
+    ``dtype`` and ``cell_attention`` (tasks.py:_pt_backbone_params)."""
+    return dict(backbone_kwargs(mp), dtype=_dtype(mp),
+                cell_attention=bool(mp.get("cell_attention", False)))
+
+
+def _pointtransformer_preset() -> TrainConfig:
+    """sgd lr 0.1 momentum 0.9 wd 1e-4, cosine 40, min_lr 1e-5; CE only."""
+    return TrainConfig(
+        model_name="pointtransformer",
+        optimizer=OptimizerConfig(name="sgd", lr=1e-1, weight_decay=1e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig(sched="cosine", full_steps=40, min_lr=1e-5),
+        loss_weights={"tooth_class_loss_1": 1.0},
+        model_parameter=copy.deepcopy(TGNET_FPS_MODEL_PARAMETER),
+    )
+
+
+# name -> (build(model_parameter, device), preset)
+_SEM_FAMILIES = {
+    "pointnet": (lambda mp, device: PointNetSeg(
+        num_classes=17, scale=mp.get("scale", 2), device=device),
+        lambda: _adam_preset("pointnet")),
+    "pointnetpp": (lambda mp, device: PointNetPPSeg(
+        num_classes=17, scale=mp.get("scale", 4), device=device),
+        lambda: _adam_preset("pointnetpp")),
+    "dgcnn": (lambda mp, device: DGCNNSeg(
+        num_classes=17, k=mp.get("k", 20), device=device),
+        lambda: _adam_preset("dgcnn")),
+    "pointtransformer": (lambda mp, device: PointTransformerSeg(
+        k=17, **_pt_backbone_params(mp), device=device),
+        _pointtransformer_preset),
+}
+SEM_MODELS = tuple(_SEM_FAMILIES)
+
+
+def build_sem_model(name: str, mp: dict, *, device):
+    """The semantic family ``name`` from its ``model_parameter``."""
+    return _SEM_FAMILIES[name][0](mp, device)
+
+
+for _name, (_build, _preset) in _SEM_FAMILIES.items():
+    register_task(ModelTask(
+        name=_name,
+        build_module=(lambda cfg, device, _n=_name:
+                      build_sem_model(_n, cfg.model_parameter, device=device)),
+        compute_losses=_ce_losses,
+        default_config=_preset,
+    ))
+
+
+# ---------------------------------------------------------------------------
+# tsegnet (train_configs/tsegnet.py): the module and its preset; the
+# training task comes with its losses and host stage
+# ---------------------------------------------------------------------------
+
+def _tsegnet_preset(name: str = "tsegnet") -> TrainConfig:
+    """adam lr 1e-3, wd 1e-4, cosine 40, min_lr 1e-4."""
+    return TrainConfig(
+        model_name=name,
+        optimizer=OptimizerConfig(name="adam", lr=1e-3, weight_decay=1e-4),
+        scheduler=SchedulerConfig(sched="cosine", full_steps=40, min_lr=1e-4),
+        loss_weights={"dist_loss": 1.0, "cent_loss": 1.0, "chamf_loss": 0.1,
+                      "seg_1_loss": 1.0, "seg_2_loss": 1.0, "id_pred_loss": 1.0},
+        model_parameter={
+            "crop_sample_size": 3072,
+            "run_tooth_segmentation_module": True,
+            "pretrained_centroid_model_path": None,
+        },
+    )
+
+
+def build_tsegnet(cfg, *, device) -> TSegNetModule:
+    """``cfg``: a TrainConfig, or a dict with a ``model_parameter``."""
+    mp = cfg["model_parameter"] if isinstance(cfg, dict) else cfg.model_parameter
+    return TSegNetModule(
+        crop_size=mp.get("crop_sample_size", 3072),
+        run_seg_module=mp.get("run_tooth_segmentation_module", True),
+        tiny_backbone=mp.get("tiny_backbone", False), device=device)

@@ -1,5 +1,7 @@
-"""Eval-mode building blocks (counterpart of toothgroupnetwork_tpu/nn)."""
+"""Building blocks (counterpart of toothgroupnetwork_tpu/nn)."""
 
-from .layers import MaskedBatchNorm, masked_mean
+from .layers import (Dense, LayerNorm, MaskedBatchNorm, PointMLP, masked_max,
+                     masked_mean)
 
-__all__ = ["MaskedBatchNorm", "masked_mean"]
+__all__ = ["Dense", "LayerNorm", "MaskedBatchNorm", "PointMLP", "masked_max",
+           "masked_mean"]

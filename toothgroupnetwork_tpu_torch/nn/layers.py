@@ -11,6 +11,16 @@ from torch import nn
 from torch.nn import functional as F
 
 
+def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
+    """Max over ``dim`` with invalid positions held at -1e30 (so a fully
+    masked row gives -1e30, as in the JAX package); ``mask`` has ``x``'s
+    shape without the channel axis."""
+    if mask is None:
+        return x.amax(dim=dim)
+    return torch.where(mask.to(torch.bool)[..., None], x,
+                       torch.tensor(-1e30, dtype=x.dtype, device=x.device)).amax(dim=dim)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Mean over ``dim`` with invalid positions excluded; ``mask`` has ``x``'s
     shape without the channel axis."""
@@ -99,3 +109,46 @@ class MaskedBatchNorm(nn.Module):
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
         y = (xf - mean) * inv * self.scale + self.bias
         return y.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis: parameters ``scale`` and
+    ``bias`` (flax's names; the weight bridge maps only ``kernel``), epsilon
+    1e-6, the variance as ``E[x^2] - E[x]^2`` clipped at 0 (flax's fast
+    variance), ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, channels: int, *, device, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class PointMLP(nn.Module):
+    """Per-point Dense -> MaskedBatchNorm -> ReLU stack (``dense_i``/``bn_i``,
+    the flax names). ``last_activation=False`` leaves the last layer Dense +
+    BN (PointNetEncoder's mlp3)."""
+
+    def __init__(self, din: int, features, last_activation: bool = True, *,
+                 device):
+        super().__init__()
+        self.n = len(features)
+        self.last_activation = last_activation
+        for i, f in enumerate(features):
+            self.add_module(f"dense_{i}", Dense(din, f, device=device))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(f, device=device))
+            din = f
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), mask)
+            if i < self.n - 1 or self.last_activation:
+                x = F.relu(x)
+        return x

@@ -26,3 +26,9 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     d2 = _dot_fixed(dst, dst)
     cross = _dot_fixed(src.unsqueeze(-2), dst.unsqueeze(-3))
     return torch.clamp_min((s2.unsqueeze(-1) - 2.0 * cross) + d2.unsqueeze(-2), 0.0)
+
+
+def pairwise_sqdist(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Alias of :func:`square_distance` (the JAX package's name at its call
+    sites)."""
+    return square_distance(src, dst)

@@ -33,3 +33,9 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if os.environ.get("TGN_TPU_GATHER", "auto") == "mxu":
         return onehot_gather(points, idx)
     return index_points(points, idx)
+
+
+def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Neighbourhood gather ``[B, N, C]`` + ``[B, S, K]`` -> ``[B, S, K, C]``
+    (the pointops grouping contract)."""
+    return index_points(points, idx)

@@ -21,3 +21,9 @@ def knn_interpolate(target_xyz: torch.Tensor, source_xyz: torch.Tensor,
     weight = recip / recip.sum(dim=-1, keepdim=True)
     neigh = index_points(source_feat, idx)
     return (neigh * weight[..., None]).sum(dim=-2)
+
+
+def three_nn_interpolate(target_xyz, source_xyz, source_feat, t_mask=None,
+                         s_mask=None):
+    """The PointNet++ three-NN upsampling: :func:`knn_interpolate` at k = 3."""
+    return knn_interpolate(target_xyz, source_xyz, source_feat, 3, t_mask, s_mask)

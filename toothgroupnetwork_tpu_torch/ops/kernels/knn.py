@@ -11,6 +11,12 @@ each query's list from the candidates around its own index, so its time no
 longer follows the cloud's order (csrc/knn.cu gives the design). The
 self-first dedup and the exact re-score stay in plain torch (ops/knn.py), as
 they stay in XLA around the Pallas kernel.
+
+Any channel count C is taken, as ``knn_pallas_select`` takes one: C = 3 (xyz)
+runs ``tgn_knn`` (float4 candidate tiles, the seed window), any other C up
+to :data:`MAX_C` ``tgn_knn_c`` (query rows and transposed candidate tiles
+in shared memory, the distance summed channel by channel in the plain
+twin's order), as DGCNN selects in feature space at C = 6 and 64.
 """
 
 from __future__ import annotations
@@ -22,23 +28,25 @@ from . import build
 from ._launch import count_launch, on_cpu, require, stream_of
 
 MAX_K = 64
+MAX_C = 256
 
 
 def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
                bias: torch.Tensor | None = None):
-    """query ``[B, M, 3]``, points ``[B, N, 3]`` f32 contiguous, bias ``[B, N]``
+    """query ``[B, M, C]``, points ``[B, N, C]`` f32 contiguous, bias ``[B, N]``
     f32 or None -> (idx int32 ``[B, M, k]``, d2 f32 ``[B, M, k]``).
-    CPU tensors take :func:`knn_select_reference`."""
+    CPU tensors take :func:`knn_select_reference`. Each launch also counts
+    under its C in ``knn_select.launches_by_shape``."""
     if on_cpu(query):
         return knn_select_reference(query, points, k, bias)
     dev = query.device
     require(query, "query", torch.float32, 3, dev)
     require(points, "points", torch.float32, 3, dev)
-    b, m, _ = query.shape
+    b, m, c = query.shape
     n = points.shape[1]
-    if query.shape[2] != 3 or points.shape[2] != 3 or points.shape[0] != b:
+    if points.shape[2] != c or points.shape[0] != b or not 1 <= c <= MAX_C:
         raise ValueError(f"knn: query {tuple(query.shape)} points "
-                         f"{tuple(points.shape)}")
+                         f"{tuple(points.shape)} (1 <= C <= {MAX_C})")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn kernel takes 1 <= k <= {MAX_K}, got {k}")
     if bias is not None:
@@ -49,16 +57,22 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
         lib = build.library()
         idx = torch.empty((b, m, k), dtype=torch.int32, device=dev)
         d2 = torch.empty((b, m, k), dtype=torch.float32, device=dev)
-        status = lib.tgn_knn(query.data_ptr(), points.data_ptr(),
-                             None if bias is None else bias.data_ptr(),
-                             b, m, n, k, idx.data_ptr(), d2.data_ptr(),
-                             stream_of(dev))
-        build.check(status, "tgn_knn")
-    count_launch(knn_select)
+        bias_ptr = None if bias is None else bias.data_ptr()
+        if c == 3:
+            status = lib.tgn_knn(query.data_ptr(), points.data_ptr(), bias_ptr,
+                                 b, m, n, k, idx.data_ptr(), d2.data_ptr(),
+                                 stream_of(dev))
+        else:
+            status = lib.tgn_knn_c(query.data_ptr(), points.data_ptr(), bias_ptr,
+                                   b, m, n, c, k, idx.data_ptr(), d2.data_ptr(),
+                                   stream_of(dev))
+        build.check(status, "tgn_knn" if c == 3 else "tgn_knn_c")
+    count_launch(knn_select, c)
     return idx, d2
 
 
 knn_select.launches = 0
+knn_select.launches_by_shape = {}
 
 
 def smallest_k(d2: torch.Tensor, k: int):

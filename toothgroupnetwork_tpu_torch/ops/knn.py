@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from .distance import _dot_fixed
 from .gather import index_points
 from .kernels.knn import knn_select, smallest_k
 
@@ -15,16 +16,12 @@ _BIG = 1e10
 __all__ = ["knn_points", "knn_self", "smallest_k"]
 
 
-def _sq3(delta: torch.Tensor) -> torch.Tensor:
-    return (delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1]
-            ) + delta[..., 2] * delta[..., 2]
-
-
 def knn_points(query: torch.Tensor, points: torch.Tensor, k: int,
                q_mask: torch.Tensor | None = None,
                p_mask: torch.Tensor | None = None, *,
                include_self: bool = False, need_dist: bool = True):
-    """Exact kNN from ``query`` ``[M, 3]``/``[B, M, 3]`` into ``points``.
+    """Exact kNN from ``query`` ``[M, C]``/``[B, M, C]`` into ``points``
+    (any C: xyz, or DGCNN's feature space).
 
     Masked points get d2 + 1e10 (a bias: they can still fill a row), ties go
     to the lower index, and for k > n the tail is index 0 at d2 = 1e10.
@@ -61,7 +58,8 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, k: int,
         idx = torch.cat([self_col, idx], dim=-1)
 
     if need_dist:
-        d2s = _sq3(query[:, :, None, :] - index_points(points, idx))
+        delta = query[:, :, None, :] - index_points(points, idx)
+        d2s = _dot_fixed(delta, delta)
         if keff < k:
             # keep the k > n sentinel: a re-scored index 0 would sort forward
             pad = torch.arange(d2s.shape[-1], device=idx.device) >= (

@@ -2,6 +2,9 @@
 
 from .maker import make_inference_pipeline
 from .predict import ScanSegmentation
+from .sem import SemInferencePipeline
 from .tgn import TgnInferencePipeline
+from .tsegnet import TsegnetInferencePipeline
 
-__all__ = ["make_inference_pipeline", "ScanSegmentation", "TgnInferencePipeline"]
+__all__ = ["make_inference_pipeline", "ScanSegmentation", "SemInferencePipeline",
+           "TgnInferencePipeline", "TsegnetInferencePipeline"]

@@ -1,0 +1,110 @@
+"""tsegnet inference pipeline (counterpart of
+toothgroupnetwork_tpu/pipelines/tsegnet.py): host mesh prep and FPS (K1) ->
+the centroid module on the device -> one fetch -> host DBSCAN(eps=.05,
+min_samples=3) over the offset-moved l3 points with ``dist < 0.3`` -> 16
+padded crop slots with masks -> the seg module on the device, with the
+sigmoid and the argmax there -> per crop, points with ``sigmoid(pd_2) >
+0.5`` take the crop's id (later crops overwrite earlier ones) -> FDI remap
+-> host 1-NN to every original vertex."""
+
+from __future__ import annotations
+
+import copy
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..models.tasks import _tsegnet_preset, build_tsegnet
+from ..models.tsegnet import tsegnet_crops
+from ..postprocess.clustering import dbscan
+from ..utils.weights import load_npz
+from .base import N_SAMPLE, nn_upsample, prep_mesh_feats, sample_on_device
+from .tgn import use_full_fp32
+
+K_MAX = 16
+
+
+class TsegnetInferencePipeline:
+    def __init__(self, ckpt_path: str | None, config: dict | None = None,
+                 n_sample: int = N_SAMPLE, module=None, *, device):
+        """``config``: a dict with a ``model_parameter`` (the preset's by
+        default). ``module`` replaces the built model, and no checkpoint is
+        read."""
+        use_full_fp32()
+        self.device = torch.device(device)
+        cfg = (copy.deepcopy(config) if config
+               else {"model_parameter": _tsegnet_preset().model_parameter})
+        self.n_sample = n_sample
+        self.crop_size = cfg["model_parameter"].get("crop_sample_size", 3072)
+        self.module = module if module is not None else load_npz(
+            ckpt_path, build_tsegnet(cfg, device=self.device)).eval()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # per-phase wall seconds and the proposal counts of the last call
+        self.timings: dict[str, float] = defaultdict(float)
+        self.last_stats: dict = {}
+
+    def proposals(self, l3_xyz: np.ndarray, offset: np.ndarray, dist: np.ndarray):
+        """Crop centres: DBSCAN over the moved l3 points with ``dist <
+        0.3``, one centre (the mean) per cluster, noise dropped. Returns
+        ``(centers [1, K_MAX, 3] with the 1e3 sentinel, valid [1, K_MAX])``."""
+        moved = (l3_xyz + offset)[dist < 0.3]
+        centers_list = []
+        if moved.shape[0] >= 3:
+            labels, _ = dbscan(moved, 0.05, 3)
+            centers_list = [moved[labels == lab].mean(axis=0)
+                            for lab in np.unique(labels) if lab != -1]
+        centers = np.full((1, K_MAX, 3), 1e3, np.float32)
+        valid = np.zeros((1, K_MAX), bool)
+        for i, c in enumerate(centers_list[:K_MAX]):
+            centers[0, i] = c
+            valid[0, i] = True
+        return centers, valid
+
+    @torch.inference_mode()
+    def __call__(self, stl_path: str) -> dict:
+        timings: dict[str, float] = defaultdict(float)
+        dev = self.device
+        t0 = time.perf_counter()
+        org_feats, feats = prep_mesh_feats(stl_path, self.n_sample)
+        feats_dev, sampled = sample_on_device(feats, self.n_sample, dev)
+        feats_dev = feats_dev[None]
+        t1 = time.perf_counter()
+        timings["mesh_prep"] = t1 - t0
+
+        cent = self.module.centroid_forward(feats_dev)
+        l3_xyz, offset, dist = (t.cpu().numpy() for t in (
+            cent["l3_xyz"][0], cent["offset_result"][0], cent["dist_result"][0, :, 0]))
+        t2 = time.perf_counter()
+        timings["centroid_device"] = t2 - t1
+        centers, valid = self.proposals(l3_xyz, offset, dist)
+        t3 = time.perf_counter()
+        timings["host_dbscan"] = t3 - t2
+
+        pred_labels = np.zeros(self.n_sample)
+        painted = 0
+        if valid.any():
+            crop_feat, crop_mask, crop_idx = tsegnet_crops(
+                feats_dev, cent["l0_points"], torch.from_numpy(centers).to(dev),
+                torch.from_numpy(valid).to(dev), self.crop_size)
+            _, _, pd_2, id_pred = self.module.seg_forward(crop_feat, crop_mask)
+            pd_2, ids, crop_idx = (t.cpu().numpy() for t in (
+                torch.sigmoid(pd_2[..., 0]), torch.argmax(id_pred, dim=-1),
+                crop_idx[0]))
+            for k in np.flatnonzero(valid[0]):
+                sel = crop_idx[k][pd_2[k] > 0.5]
+                pred_labels[sel] = ids[k]
+                painted += int(sel.size > 0)
+        t4 = time.perf_counter()
+        timings["seg_device"] = t4 - t3
+
+        pred_labels[pred_labels >= 9] += 2
+        pred_labels[pred_labels > 0] += 10
+        full = nn_upsample(pred_labels, sampled[:, :3], org_feats[:, :3])
+        timings["host_1nn_transfer"] = time.perf_counter() - t4
+        self.timings = timings
+        self.last_stats = {"clusters": int(valid.sum()), "painted_crops": painted}
+        return {"sem": full.reshape(-1).astype(np.int64),
+                "ins": full.reshape(-1).astype(np.int64)}
