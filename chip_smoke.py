@@ -83,7 +83,17 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      twice), the challenge JSON checked, a repeated scan identical, steady
      seconds a scan by phase, peak memory, one profiled call's busy share,
      and the forward on the card against the CPU port (DGCNN at 6000
-     points).
+     points);
+ 13. the families trained: pointnet, pointnetpp, dgcnn, pointtransformer
+     and tsegnet at each preset's full width, batch 1, on phase 10's first
+     24000-point case: the launches of one step exactly (none of K3-K8;
+     K3 in a pointtransformer val scan), tsegnet's host stage apart
+     (launches, proposals card vs CPU, seconds), step 1 against the CPU
+     port (DGCNN at 6000 points and dropout 0), two seeded runs
+     bit-identical, the loss falling, the step's seconds with and without
+     deterministic algorithms, its peak memory and one profiled step; then
+     ``cli.train --model_name dgcnn`` and ``tsegnet`` for one epoch, the
+     exported weights served through ``cli.infer --model_name``.
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -1706,16 +1716,13 @@ def centre_classifier(model, name: str, feat: torch.Tensor) -> None:
         layer.weight -= (torch.outer(mu, h) / (h @ h)).float()
 
 
-def fit_tsegnet(model, pipe_cls, feat: torch.Tensor, scan: Path, dev, gen) -> None:
-    """Fit tsegnet's centroid heads to the scan's sample ``feat`` so that
-    DBSCAN finds TSEGNET_GROUPS clusters (the l3 points sorted by x, split
-    into runs, each run's moved points within 0.004 of the run's mean, every
-    distance 0.1: the heads' BatchNorm biases +5, the last Dense of each
-    head the least-squares fit over its input), then centre the paint logit
-    on the valid crops' points (about half of each crop painted). Random
-    heads otherwise scatter the moved points and DBSCAN finds nothing. The
-    id head (``fc2``) is centred on the valid crops as the semantic
-    classifiers are (``centre_classifier``), so the crops take other ids."""
+def fit_centroid_heads(model, feat: torch.Tensor, gen, mask=None) -> None:
+    """Fit tsegnet's centroid heads to ``feat`` so that DBSCAN finds
+    TSEGNET_GROUPS clusters: the l3 points sorted by x, split into runs,
+    each run's moved points within 0.004 of the run's mean, every distance
+    0.1 (the heads' BatchNorm biases +5, the last Dense of each head the
+    least-squares fit over its input, in eval mode). Random heads otherwise
+    scatter the moved points and DBSCAN finds nothing."""
     cm = model.cent_module
     seen = {}
     hooks = [getattr(cm, n).register_forward_pre_hook(
@@ -1723,7 +1730,7 @@ def fit_tsegnet(model, pipe_cls, feat: torch.Tensor, scan: Path, dev, gen) -> No
     with torch.no_grad():
         cm.offset_bn.bias += 5.0
         cm.dist_bn.bias += 5.0
-        out = model.centroid_forward(feat)
+        out = model.centroid_forward(feat, mask)
         for h in hooks:
             h.remove()
         xyz = out["l3_xyz"][0].double().cpu().numpy()
@@ -1739,6 +1746,16 @@ def fit_tsegnet(model, pipe_cls, feat: torch.Tensor, scan: Path, dev, gen) -> No
             layer = getattr(cm, n)
             layer.weight.copy_(torch.from_numpy(sol[:-1].T.astype(np.float32)))
             layer.bias.copy_(torch.from_numpy(sol[-1].astype(np.float32)))
+
+
+def fit_tsegnet(model, pipe_cls, feat: torch.Tensor, scan: Path, dev, gen) -> None:
+    """Fit tsegnet's centroid heads to the scan's sample ``feat``
+    (``fit_centroid_heads``), then centre the paint logit on the valid
+    crops' points (about half of each crop painted). The id head (``fc2``)
+    is centred on the valid crops as the semantic classifiers are
+    (``centre_classifier``), so the crops take other ids."""
+    fit_centroid_heads(model, feat, gen)
+    seen = {}
     seg = model.seg_module
     pipe = pipe_cls(None, module=model, device=dev)
     hooks = [seg.pd_mask_2.register_forward_hook(lambda _m, _a, o: seen.update(pd_2=o)),
@@ -1926,6 +1943,303 @@ def family_card_vs_cpu(name, pipe, cpu_model, sample, dev) -> dict:
         return out
 
 
+# the families-training phase (13): each family at its preset's full width
+# and batch 1 on the training phase's 24000-point arch cases, with the
+# launches a train step must show (K1 fps, K2 knn_select; none of K4-K8,
+# no K3: training runs the unfused attention), tsegnet's host stage's
+# (its centroid forward) and a pointtransformer val scan's K3
+FAMILY_TRAIN_LAUNCHES = {
+    "pointnet": {"fps": 0, "knn_select": 0},
+    "pointnetpp": {"fps": 3, "knn_select": 3},
+    "dgcnn": {"fps": 0, "knn_select": 3},
+    "pointtransformer": {"fps": 4, "knn_select": 17},
+    "tsegnet": {"fps": 9, "knn_select": 9},
+}
+TSEGNET_HOST_LAUNCHES = {"fps": 3, "knn_select": 3}
+PT_VAL_K3 = 18
+FAMILY_REPEAT_STEPS = 3
+FAMILY_FALL_STEPS = 8
+FAMILY_TIMED_STEPS = 3
+TSEGNET_HOST_REPS = 3
+
+
+def match_running_stats(module, feat, mask) -> None:
+    """Every BatchNorm of ``module`` takes its train-mode batch statistics
+    on ``feat`` as running statistics (the masked mean and biased
+    variance), so that its eval-mode forward (tsegnet's host stage) equals
+    the train-mode one of a step on this batch."""
+    from toothgroupnetwork_tpu_torch.nn.layers import MaskedBatchNorm
+
+    stats, hooks = {}, []
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            def capture(bn, args):
+                x = args[0].double().reshape(-1, args[0].shape[-1])
+                w = (torch.ones(x.shape[0], dtype=torch.float64, device=x.device)
+                     if args[1] is None else args[1].reshape(-1).double())
+                mean = (x * w[:, None]).sum(0) / w.sum()
+                stats[bn] = (mean, (((x - mean) ** 2) * w[:, None]).sum(0) / w.sum())
+            hooks.append(m.register_forward_pre_hook(capture))
+    module.train()
+    with torch.no_grad():
+        module(feat, mask)
+    module.eval()
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        for bn, (mean, var) in stats.items():
+            bn.mean.copy_(mean.float())
+            bn.var.copy_(var.float())
+
+
+def phase_family_train(dev, work: Path, scan: Path) -> dict:
+    """Training of pointnet, pointnetpp, dgcnn, pointtransformer and tsegnet
+    at each preset's full width, batch 1, on the first training case of
+    phase 10 (24000 points), from flax-like initial weights:
+
+      * tsegnet's host stage alone, on a copy whose centroid module has this
+        batch's statistics and fitted heads (random heads propose no crop):
+        the launches of TSEGNET_HOST_LAUNCHES exactly, its proposals on the
+        card and on the CPU (the same number, centres within 1e-3), its
+        seconds; tsegnet's steps below train on those proposals (fitted
+        heads make the train step itself unstable);
+      * every count at 0, one step: the launches of FAMILY_TRAIN_LAUNCHES
+        exactly, none of K3 and K4-K8; a pointtransformer val scan launches
+        K3 PT_VAL_K3 times;
+      * step 1 on the card against the CPU port from the same weights within
+        1e-3 relative (DGCNN over DGCNN_CPU_POINTS points of the case at
+        dropout 0 on both sides, the two generators drawing other masks);
+      * two seeded runs of FAMILY_REPEAT_STEPS steps bit-identical (DGCNN at
+        the preset's dropout 0.5, its generator seeded as the Trainer seeds
+        it); the loss falling over FAMILY_FALL_STEPS steps;
+      * the median step seconds with and without deterministic algorithms,
+        the peak memory of a step, one profiled step;
+      * ``cli.train --model_name dgcnn`` and ``--model_name tsegnet`` for one
+        epoch on the card, each count at 0 before, and the exported ``.npz``
+        served through ``cli.infer --model_name``.
+
+    Returns each family's launches a train step."""
+    from toothgroupnetwork_tpu_torch.cli import infer
+    from toothgroupnetwork_tpu_torch.cli import train as cli_train
+    from toothgroupnetwork_tpu_torch.data import DentalScanDataset
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.ops.kernels import (attention, cell_select,
+                                                         fps, gather, knn)
+    from toothgroupnetwork_tpu_torch.train import eval_step, make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.train.checkpoints import save_weights
+    from toothgroupnetwork_tpu_torch.train.trainer import dropout_seed
+    from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
+
+    counted = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x,
+               attention.project_kv, cell_select.cell_select_x, cell_select.cell_select_p,
+               attention.fused_vector_attention, attention.fused_vector_attention_packed,
+               gather.onehot_gather_packed)
+
+    def zero():
+        for k in counted:
+            k.launches = 0
+        knn.knn_select.launches_by_shape.clear()
+        torch.cuda.synchronize()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k.__name__: k.launches for k in counted}
+
+    t_phase = time.perf_counter()
+    data = work / "train_data"
+    item = DentalScanDataset(str(data))[0]
+    case = {k: item[k][None] for k in ("feat", "gt_seg_label", "mask")}
+    sub = np.sort(np.random.default_rng(0).permutation(N_POINTS)[:DGCNN_CPU_POINTS])
+    case_sub = {k: v[:, sub] for k, v in case.items()}
+    per_step = {}
+    for name in FAMILIES:
+        t_family = time.perf_counter()
+        task = get_task(name)
+        cfg = task.default_config()
+        model = task.build_module(cfg, device="cpu")
+        init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
+        state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model
+
+        def fresh(device, dropout=None):
+            m = task.build_module(cfg, device=device)
+            m.load_state_dict(state0)
+            if dropout is not None:
+                m.drop.p = dropout
+            return m, make_optimizer(cfg.optimizer, m.parameters())
+
+        # tsegnet's host stage apart, on a copy whose centroid module has
+        # this batch's statistics and fitted heads (random heads propose
+        # nothing): launches, proposals card vs CPU, seconds; its steps
+        # then train on those proposals
+        proposals, host_counts, host_s = {}, None, None
+        if name == "tsegnet":
+            cal = []
+            for device in (dev, torch.device("cpu")):
+                m, _ = fresh(device)
+                if not cal:
+                    feat_dev = torch.from_numpy(case["feat"]).to(dev)
+                    mask_dev = torch.from_numpy(case["mask"]).to(dev)
+                    match_running_stats(m.cent_module, feat_dev, mask_dev)
+                    fit_centroid_heads(m, feat_dev, np.random.default_rng(13), mask_dev)
+                    fitted = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+                    zero()
+                    cal.append(task.host_stage(m, case, cfg, step=0))
+                    host_counts = counts()
+                    host_times = []
+                    for i in range(TSEGNET_HOST_REPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        task.host_stage(m, case, cfg, step=i)
+                        host_times.append(time.perf_counter() - t0)
+                    host_s = float(np.median(host_times))
+                else:
+                    m.load_state_dict(fitted)
+                    cal.append(task.host_stage(m, case, cfg, step=0))
+                del m
+            proposals, cpu_cal = cal
+            live, cpu_live = proposals["center_valid"], cpu_cal["center_valid"]
+            d_cent = (float(np.abs(cpu_cal["center_points"][live]
+                                   - proposals["center_points"][live]).max())
+                      if (live == cpu_live).all() else float("inf"))
+            want_host = {**{k.__name__: 0 for k in counted}, **TSEGNET_HOST_LAUNCHES}
+            log("family_train_host_stage", model=name, launches=host_counts,
+                proposals=int(live.sum()), proposals_cpu=int(cpu_live.sum()),
+                max_abs_dcentre=d_cent, seconds=host_s)
+            if host_counts != want_host or not live.any() or d_cent > 1e-3:
+                raise AssertionError(f"tsegnet host stage: launches {host_counts}, "
+                                     f"{int(live.sum())} proposals, centres {d_cent}")
+
+        def step_on(m, opt, batch, step, device, deterministic=True):
+            gen = torch.Generator(device=device).manual_seed(dropout_seed(cfg.seed, step))
+            vals = train_step(m, opt, task, cfg,
+                              {k: torch.from_numpy(np.asarray(v)).to(device)
+                               for k, v in {**batch, **proposals}.items()},
+                              deterministic, gen)
+            return {k: float(v) for k, v in vals.items()}
+
+        # the launches of one step
+        model, opt = fresh(dev)
+        zero()
+        step_on(model, opt, case, 0, dev)
+        launches = counts()
+        knn_by_c = dict(knn.knn_select.launches_by_shape)
+        per_step[name] = launches
+        want = {**{k.__name__: 0 for k in counted}, **FAMILY_TRAIN_LAUNCHES[name]}
+        log("family_train_launches", model=name, per_step=launches,
+            knn_launches_by_c=knn_by_c)
+        if launches != want:
+            raise AssertionError(f"{name}: a train step launched {launches}, expected {want}")
+        if name == "dgcnn" and knn_by_c != {6: 1, 64: 2}:
+            raise AssertionError(f"dgcnn: K2 by C {knn_by_c} a step")
+        if name == "pointtransformer":
+            zero()
+            eval_step(model, task, cfg, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in case.items()})
+            val = counts()
+            log("family_train_val", model=name, per_val_scan=val)
+            if val["fused_vector_attention_packed_x"] != PT_VAL_K3:
+                raise AssertionError(f"pointtransformer val scan launched {val}")
+        del model, opt
+
+        # step 1, card against the CPU port
+        batch = case_sub if name == "dgcnn" else case
+        dropout = 0.0 if name == "dgcnn" else None
+        results = []
+        for device in (dev, torch.device("cpu")):
+            model, opt = fresh(device, dropout)
+            t0 = time.perf_counter()
+            results.append((step_on(model, opt, batch, 0, device), time.perf_counter() - t0))
+            del model, opt
+        (card, card_s), (cpu, cpu_s) = results
+        rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu}
+        log("family_train_step1", model=name, points=batch["feat"].shape[1], card=card,
+            cpu=cpu, rel_diff=rel, card_step_s=card_s, cpu_step_s=cpu_s)
+        if max(rel.values()) > 1e-3:
+            raise AssertionError(f"{name}: step 1 card vs CPU {rel}")
+
+        # two seeded runs bit for bit; then the loss falls
+        runs = []
+        for _ in range(2):
+            model, opt = fresh(dev)
+            losses = [step_on(model, opt, case, i, dev) for i in range(FAMILY_REPEAT_STEPS)]
+            runs.append((model, opt, losses))
+        (model, opt, losses), (other, _, again) = runs
+        same = losses == again and all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(), other.state_dict().values()))
+        del runs, other
+        more = [step_on(model, opt, case, i, dev)
+                for i in range(FAMILY_REPEAT_STEPS, FAMILY_FALL_STEPS)]
+        totals = [sum(v * cfg.loss_weights.get(k, 1.0) for k, v in ls.items())
+                  for ls in losses + more]
+        log("family_train_repeat", model=name, steps=FAMILY_REPEAT_STEPS, identical=same,
+            total_loss=totals)
+        if not same:
+            raise AssertionError(f"{name}: two seeded training runs differ")
+        if not all(np.isfinite(list(ls.values())).all() for ls in losses + more):
+            raise AssertionError(f"{name}: non-finite losses {losses + more}")
+        if not totals[-1] < totals[0]:
+            raise AssertionError(f"{name}: the loss did not fall: {totals}")
+
+        # seconds a step each way, peak memory, one profiled step
+        timed = {}
+        for det in (True, False, True):
+            for i in range(FAMILY_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step_on(model, opt, case, FAMILY_FALL_STEPS + i, dev, det)
+                torch.cuda.synchronize()
+                timed.setdefault(det, []).append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_on(model, opt, case, 0, dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        busy = profile_call(lambda: step_on(model, opt, case, 0, dev),
+                            f"family train step {name}")
+        med = {det: float(np.median(v)) for det, v in timed.items()}
+        log("family_train_time", model=name, deterministic_step_s=med[True],
+            nondeterministic_step_s=med[False], determinism_cost=med[True] / med[False] - 1.0,
+            steps_each=len(timed[True]), peak_memory_gib=peak / 2 ** 30, busy_share=busy,
+            host_stage_s=host_s, family_s=time.perf_counter() - t_family)
+        del model, opt
+        torch.cuda.empty_cache()
+
+    # one epoch through the CLI, the exported weights served
+    n_vert = sum(1 for line in scan.open() if line.startswith("v "))
+    for name in ("dgcnn", "tsegnet"):
+        argv = ["--model_name", name, "--input_data_dir_path", str(data),
+                "--train_data_split_txt_path", str(work / "train.txt"),
+                "--val_data_split_txt_path", str(work / "val.txt"),
+                "--checkpoint_path", str(work / "family_ckpt" / name), "--max_epochs", "1",
+                "--device", str(dev)]
+        zero()
+        t0 = time.perf_counter()
+        trainer = cli_train.main(argv)
+        wall = time.perf_counter() - t0
+        seen = counts()
+        npz = work / f"trained_{name}.npz"
+        save_weights(str(npz), trainer.model)
+        out_dir = work / f"out_trained_{name}"
+        infer.main(["--input_dir_path", str(scan.parent), "--save_path", str(out_dir),
+                    "--model_name", name, "--checkpoint_path", str(npz),
+                    "--device", str(dev)])
+        res = json.loads((out_dir / (scan.stem + ".json")).read_text())
+        log("family_train_cli", model=name, epochs=trainer.epoch, steps=trainer.step,
+            wall_s=wall, best_val=trainer.best_val, launches=seen,
+            served_labels=sorted(set(res["labels"])))
+        if not (trainer.epoch == 1 and np.isfinite(trainer.best_val)
+                and seen["knn_select"] and (name == "dgcnn" or seen["fps"])):
+            raise AssertionError(f"cli.train {name}: epoch {trainer.epoch}, val "
+                                 f"{trainer.best_val}, launches {seen}")
+        if len(res["labels"]) != n_vert or not set(res["labels"]) <= FDI:
+            raise AssertionError(f"{name}: the trained weights served {len(res['labels'])} "
+                                 f"labels for {n_vert} vertices")
+        del trainer
+    log("family_train", seconds=time.perf_counter() - t_phase,
+        launches_per_step={n: {k: v for k, v in c.items() if v} for n, c in per_step.items()})
+    return per_step
+
+
 def step_phases(model, opt, task, cfg, batch) -> dict:
     """The seconds of one train step's phases, as ``train_step`` runs them
     (deterministic algorithms on), each ended by a synchronise: the
@@ -2052,6 +2366,8 @@ def main() -> int:
         train = phase_train(dev, work, ckpts, scans[0])
         workflow = phase_workflow(dev, work, ckpts)
         families = phase_families(dev, work, scans[1])
+        family_train = phase_family_train(dev, work,
+                                          work / "families_scan" / scans[1].name)
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
@@ -2072,6 +2388,9 @@ def main() -> int:
         # the families (phase 12): each family's launches a scan
         rec.entry["family_launches_per_scan"] = {
             family: seen.get(name, 0) for family, seen in families.items()}
+        # the families' training (phase 13): each family's launches a step
+        rec.entry["family_train_launches_per_step"] = {
+            family: seen.get(name, 0) for family, seen in family_train.items()}
     # each K3 shape with its launches a scan, per configuration
     for row in records[2].entry["shapes"]:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)

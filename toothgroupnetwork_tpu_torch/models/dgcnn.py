@@ -1,9 +1,9 @@
 """DGCNN semantic segmentation (counterpart of
 toothgroupnetwork_tpu/models/dgcnn.py): three EdgeConv stages over a
 dynamic feature-space kNN (k = 20; K2's general-C route at C = 6 and 64), a
-1024-d global max embedding, the skip concat, and the cls (17), offset (3)
-and dist (1) heads. Dropout is the identity: the model serves in eval
-mode."""
+1024-d global max embedding, the skip concat, dropout (train mode only,
+from the generator ``train_step`` sets) and the cls (17), offset (3) and
+dist (1) heads, offset and dist zero-initialised."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..nn.layers import Dense, MaskedBatchNorm, masked_max
+from ..nn.layers import Dense, Dropout, MaskedBatchNorm, masked_max
 from ..ops import index_points, knn_points
 
 
@@ -50,7 +50,7 @@ class EdgeConvBlock(nn.Module):
 
 class DGCNNSeg(nn.Module):
     def __init__(self, num_classes: int = 17, k: int = 20, emb_dims: int = 1024,
-                 c: int = 6, *, device):
+                 c: int = 6, dropout: float = 0.5, *, device):
         super().__init__()
         self.k = k
         kw = dict(device=device)
@@ -63,9 +63,10 @@ class DGCNNSeg(nn.Module):
         self.head1_bn = MaskedBatchNorm(512, **kw)
         self.head2 = Dense(512, 256, bias=False, **kw)
         self.head2_bn = MaskedBatchNorm(256, **kw)
+        self.drop = Dropout(dropout)
         self.cls = Dense(256, num_classes, bias=False, **kw)
-        self.offset = Dense(256, 3, bias=False, **kw)
-        self.dist = Dense(256, 1, bias=False, **kw)
+        self.offset = Dense(256, 3, bias=False, zero_init=True, **kw)
+        self.dist = Dense(256, 1, bias=False, zero_init=True, **kw)
         self.eval()
 
     def forward(self, feat, mask=None):
@@ -78,6 +79,6 @@ class DGCNNSeg(nn.Module):
         g = g[:, None, :].expand(x.shape[0], x.shape[1], g.shape[-1])
         x = torch.cat([g, x1, x2, x3], dim=-1)
         x = F.leaky_relu(self.head1_bn(self.head1(x), mask), 0.2)
-        x = F.leaky_relu(self.head2_bn(self.head2(x), mask), 0.2)
+        x = self.drop(F.leaky_relu(self.head2_bn(self.head2(x), mask), 0.2))
         return {"cls_pred": self.cls(x), "offset": self.offset(x),
                 "dist": self.dist(x)}

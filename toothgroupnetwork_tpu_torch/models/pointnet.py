@@ -17,7 +17,8 @@ from ..nn.layers import Dense, LayerNorm, PointMLP, masked_max
 
 class SpatialTransformer(nn.Module):
     """Per-point MLP -> masked global max -> FC head with LayerNorms ->
-    a ``k x k`` transform ``I + delta``."""
+    a ``k x k`` transform ``I + delta`` (the delta layer zero-initialised,
+    so a new transformer is the identity)."""
 
     def __init__(self, din: int, k: int, *, device):
         super().__init__()
@@ -27,7 +28,7 @@ class SpatialTransformer(nn.Module):
         self.LayerNorm_0 = LayerNorm(512, device=device)
         self.Dense_1 = Dense(512, 256, device=device)
         self.LayerNorm_1 = LayerNorm(256, device=device)
-        self.Dense_2 = Dense(256, k * k, device=device)
+        self.Dense_2 = Dense(256, k * k, device=device, zero_init=True)
 
     def forward(self, x, mask=None):
         g = masked_max(self.PointMLP_0(x, mask), mask, dim=1)

@@ -32,10 +32,10 @@ class PointNetPPSeg(nn.Module):
         d = 32 * s
         self.offset_1 = Dense(d, 16, **kw)
         self.offset_bn = MaskedBatchNorm(16, **kw)
-        self.offset_2 = Dense(16, 3, **kw)
+        self.offset_2 = Dense(16, 3, zero_init=True, **kw)
         self.dist_1 = Dense(d, 16, **kw)
         self.dist_bn = MaskedBatchNorm(16, **kw)
-        self.dist_2 = Dense(16, 1, **kw)
+        self.dist_2 = Dense(16, 1, zero_init=True, **kw)
         self.cls_1 = Dense(d, num_classes, **kw)
         self.cls_bn = MaskedBatchNorm(num_classes, **kw)
         self.cls_2 = Dense(num_classes, num_classes, **kw)

@@ -24,9 +24,11 @@ class ModelTask:
     forward_kwargs: Callable[[dict], dict] = field(default=lambda batch: {})
     # optional host stage run before each step on the loader's numpy batch
     # (its mesh_path and augmenter fields too), returning arrays that
-    # replace or join the batch's: (model, batch, config) -> dict. tgnet_bdl
+    # replace or join the batch's: (model, batch, config, step) -> dict,
+    # ``step`` the optimizer steps taken (JAX's state.step). tgnet_bdl
     # boundary-resamples each scan around a frozen fps model
-    # (train/bdl_engine.py)
+    # (train/bdl_engine.py); tsegnet proposes its crops by DBSCAN over its
+    # own centroid predictions
     host_stage: Callable | None = field(default=None)
 
 

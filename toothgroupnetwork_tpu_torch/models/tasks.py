@@ -1,8 +1,8 @@
 """Model presets and tasks (counterpart of
 toothgroupnetwork_tpu/models/tasks.py): the tgnet models and their training
 tasks, and the other families' presets and tasks (pointnet, pointnetpp,
-dgcnn and pointtransformer, 17-way CE only; tsegnet's module and preset,
-whose training task comes with its losses). The constructors take a
+dgcnn and pointtransformer, 17-way CE only; tsegnet, its centroid and seg
+losses and the host stage that proposes its crops). The constructors take a
 ``model_parameter`` dict (or a dict holding one); a task's preset is the
 port's ``TrainConfig`` (train/config.py)."""
 
@@ -10,18 +10,21 @@ from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 
 from ..losses import (batch_center_offset_loss, batch_chamfer_distance_loss,
-                      cbl_loss, tooth_class_loss)
+                      cbl_loss, centroid_loss, first_seg_loss, id_loss,
+                      second_seg_loss, tooth_class_loss)
+from ..ops import index_points
 from ..train.config import OptimizerConfig, SchedulerConfig, TrainConfig
 from .dgcnn import DGCNNSeg
 from .point_transformer import PointTransformerSeg
 from .pointnet import PointNetSeg
 from .pointnetpp import PointNetPPSeg
 from .registry import ModelTask, register_task
-from .tgnet import TGNet, binary_crop_labels, half_arch_labels
-from .tsegnet import TSegNetModule
+from .tgnet import TGNet, binary_crop_labels, gt_tooth_centroids, half_arch_labels
+from .tsegnet import N_CROPS_TRAIN, TSegNetModule, cluster_centres
 
 # model_parameter["dtype"] -> the backbone's compute dtype (tasks.py:
 # _pt_backbone_params); parameters, geometry and logits stay float32
@@ -207,7 +210,7 @@ def bdl_engine(config, device):
     return _BDL_ENGINES[key]
 
 
-def _tgnet_bdl_host_stage(model, batch, config):
+def _tgnet_bdl_host_stage(model, batch, config, step):
     device = next(model.parameters()).device
     return bdl_engine(config, device)(model, batch, config)
 
@@ -297,8 +300,7 @@ for _name, (_build, _preset) in _SEM_FAMILIES.items():
 
 
 # ---------------------------------------------------------------------------
-# tsegnet (train_configs/tsegnet.py): the module and its preset; the
-# training task comes with its losses and host stage
+# tsegnet (train_configs/tsegnet.py): centroid prediction + crop segmentation
 # ---------------------------------------------------------------------------
 
 def _tsegnet_preset(name: str = "tsegnet") -> TrainConfig:
@@ -324,3 +326,103 @@ def build_tsegnet(cfg, *, device) -> TSegNetModule:
         crop_size=mp.get("crop_sample_size", 3072),
         run_seg_module=mp.get("run_tooth_segmentation_module", True),
         tiny_backbone=mp.get("tiny_backbone", False), device=device)
+
+
+def _tsegnet_forward_kwargs(batch: dict) -> dict:
+    """The host stage's proposals; before it has run (no ``center_points``
+    in the batch), ``N_CROPS_TRAIN`` zero centres, all valid, as JAX
+    initialises the module."""
+    cp = batch.get("center_points")
+    if cp is None:
+        feat = batch["feat"]
+        cp = torch.zeros((feat.shape[0], N_CROPS_TRAIN, 3), dtype=torch.float32,
+                         device=feat.device)
+        cv = torch.ones((feat.shape[0], N_CROPS_TRAIN), dtype=torch.bool,
+                        device=feat.device)
+    else:
+        cv = batch["center_valid"]
+    return {"center_points": cp, "center_valid": cv}
+
+
+def _tsegnet_host_stage(model, batch, config, step) -> dict:
+    """Crop proposals: the centroid module's forward in eval mode (running
+    statistics) under ``no_grad``, the model's own mode kept; then, on the
+    host, each cloud's DBSCAN cluster centres (``cluster_centres``), at most
+    ``N_CROPS_TRAIN`` of them chosen by ``default_rng(step).permutation``
+    (``step``: the optimizer steps taken, JAX's ``state.step``), padded
+    with the 1e3 sentinel."""
+    device = next(model.parameters()).device
+    feat = torch.from_numpy(np.ascontiguousarray(batch["feat"])).to(device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.from_numpy(np.ascontiguousarray(mask)).to(device)
+    with torch.no_grad():
+        out = model.centroid_forward(feat, mask)
+    l3_xyz, offset, dist = (t.cpu().numpy() for t in (
+        out["l3_xyz"], out["offset_result"], out["dist_result"][..., 0]))
+    rng = np.random.default_rng(int(step))
+    b = l3_xyz.shape[0]
+    centers = np.full((b, N_CROPS_TRAIN, 3), 1e3, np.float32)
+    valid = np.zeros((b, N_CROPS_TRAIN), bool)
+    for i in range(b):
+        cents = cluster_centres(l3_xyz[i], offset[i], dist[i])
+        if not len(cents):
+            continue
+        cents = cents[rng.permutation(len(cents))[:N_CROPS_TRAIN]]
+        centers[i, :len(cents)] = cents
+        valid[i, :len(cents)] = True
+    return {"center_points": centers, "center_valid": valid}
+
+
+def _tsegnet_losses(outputs, batch, config: TrainConfig) -> dict:
+    """The centroid losses (dist 1, cent 1, chamfer 0.1) and, when the seg
+    module ran, the confidence-weighted seg losses and the 17-way id loss
+    against the labels of each proposal's nearest ground-truth centroid."""
+    gt = batch["gt_seg_label"]
+    mask = batch.get("mask")
+    xyz = batch["feat"][..., :3]
+    w = config.loss_weights
+
+    cents, cvalid = gt_tooth_centroids(xyz, gt, mask)                 # [B,16,3]
+    d_loss, c_loss, ch_loss = centroid_loss(
+        outputs["offset_result"], outputs["l3_xyz"], outputs["dist_result"],
+        cents, cvalid, outputs.get("l3_mask"))
+    losses = {
+        "dist_loss": (d_loss, w.get("dist_loss", 1.0)),
+        "cent_loss": (c_loss, w.get("cent_loss", 1.0)),
+        "chamf_loss": (ch_loss, w.get("chamf_loss", 0.1)),
+    }
+    if "pd_1" not in outputs:
+        return losses
+
+    centers = outputs["center_points"]                                # [B,K,3]
+    b, k = centers.shape[:2]
+    # each proposal's nearest valid ground-truth centroid -> its 1..16 id
+    d2 = ((centers[:, :, None, :] - cents[:, None, :, :]) ** 2).sum(-1)
+    d2 = torch.where(cvalid[:, None, :], d2, 1e9)
+    matched = (d2.argmin(dim=-1) + 1).reshape(b * k)                  # [B*K]
+    crop_gt = index_points(gt[..., None].to(torch.float32),
+                           outputs["nn_crop_indexes"])[..., 0]
+    crop_gt = crop_gt.reshape(b * k, -1).to(torch.int32)              # -1..15
+    bin_label = (crop_gt + 1 == matched[:, None]).to(torch.int32)
+
+    crop_mask = outputs["crop_mask"]
+    seg_1 = first_seg_loss(outputs["pd_1"], outputs["weight_1"], bin_label, crop_mask)
+    seg_2 = second_seg_loss(outputs["pd_2"], outputs["weight_1"], bin_label, crop_mask)
+    idl = id_loss(outputs["id_pred"], matched, outputs["center_valid"].reshape(b * k))
+    losses.update({
+        "seg_1_loss": (seg_1, w.get("seg_1_loss", 1.0)),
+        "seg_2_loss": (seg_2, w.get("seg_2_loss", 1.0)),
+        "id_pred_loss": (idl, w.get("id_pred_loss", 1.0)),
+    })
+    return losses
+
+
+register_task(ModelTask(
+    name="tsegnet",
+    build_module=build_tsegnet,
+    compute_losses=_tsegnet_losses,
+    default_config=_tsegnet_preset,
+    forward_kwargs=_tsegnet_forward_kwargs,
+    host_stage=_tsegnet_host_stage,
+))

@@ -1,4 +1,4 @@
-"""TSegNet, eval mode (counterpart of toothgroupnetwork_tpu/models/tsegnet.py):
+"""TSegNet (counterpart of toothgroupnetwork_tpu/models/tsegnet.py):
 
   * centroid module: a PointNet++ MSG backbone (1024 / 512 / 256 centres,
     radii 0.025-0.2) with offset and distance heads on the 256-point level,
@@ -11,7 +11,10 @@
     logit) and, through a group-all SA, the 17-way id head.
 
 The crop proposals (DBSCAN over the centroid module's own predictions) come
-from the host (``pipelines/tsegnet.py``). The crops select with the plain
+from the host: the inference pipeline's 16 slots (``pipelines/tsegnet.py``),
+the training task's host stage's ``N_CROPS_TRAIN`` (``models/tasks.py``).
+In train mode the gradients flow through the crops' l0 features into the
+centroid backbone, as in the JAX module. The crops select with the plain
 ``ops.smallest_k`` (k = 3072 is far above K2's 64) over the port's
 fixed-order distances (``ops/distance.py``), where the JAX package takes its
 matmul expansion: the two may order exact near-ties at a crop's rim
@@ -19,6 +22,9 @@ differently."""
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -27,6 +33,10 @@ from ..nn.layers import Dense, LayerNorm, MaskedBatchNorm
 from ..nn.set_abstraction import (FeaturePropagation, SetAbstraction,
                                   SetAbstractionMsg)
 from ..ops import index_points, smallest_k, square_distance
+from ..postprocess.clustering import dbscan
+
+# crop slots a train batch carries (JAX tsegnet.py:N_CROPS_TRAIN)
+N_CROPS_TRAIN = 8
 
 # (npoint, radii, nsamples, mlps) of the three SA levels and the FP widths;
 # ``tiny`` is the JAX package's structurally identical minimal arch
@@ -77,10 +87,10 @@ class TsgCentroidModule(nn.Module):
         d = self.backbone.l3_dim + 3
         self.offset_1 = Dense(d, 256, **kw)
         self.offset_bn = MaskedBatchNorm(256, **kw)
-        self.offset_2 = Dense(256, 3, **kw)
+        self.offset_2 = Dense(256, 3, zero_init=True, **kw)
         self.dist_1 = Dense(d, 256, **kw)
         self.dist_bn = MaskedBatchNorm(256, **kw)
-        self.dist_2 = Dense(256, 1, **kw)
+        self.dist_2 = Dense(256, 1, zero_init=True, **kw)
 
     def forward(self, feat, mask=None):
         bb = self.backbone(feat, mask)
@@ -108,7 +118,7 @@ class TsgSegModule(nn.Module):
                                          group_all=True, **kw)
         self.fc1 = Dense(512, 256, **kw)
         self.id_ln = LayerNorm(256, **kw)
-        self.fc2 = Dense(256, 17, **kw)
+        self.fc2 = Dense(256, 17, zero_init=True, **kw)
 
     def forward(self, crop_feat, crop_mask=None):
         t1 = self.tower1(crop_feat, crop_mask)
@@ -119,6 +129,20 @@ class TsgSegModule(nn.Module):
         _, g, _ = self.flatten_sa(t2["l3_xyz"], t2["l3_points"], t2["l3_mask"])
         idh = F.relu(self.id_ln(self.fc1(g[:, 0, :])))
         return pd_1, weight_1, pd_2, self.fc2(idh)
+
+
+def cluster_centres(l3_xyz: np.ndarray, offset: np.ndarray,
+                    dist: np.ndarray) -> np.ndarray:
+    """Crop centres from one cloud's centroid predictions (host): DBSCAN
+    (eps 0.05, min 3) over the moved l3 points ``l3_xyz + offset`` whose
+    predicted distance is < 0.3, one centre (the mean) per cluster in label
+    order, noise dropped. Returns ``[n, 3]``."""
+    moved = (l3_xyz + offset)[dist < 0.3]
+    if moved.shape[0] < 3:
+        return moved[:0]
+    labels, _ = dbscan(moved, 0.05, 3)
+    return np.array([moved[labels == lab].mean(axis=0)
+                     for lab in np.unique(labels) if lab != -1]).reshape(-1, 3)
 
 
 def compute_ddf(crop_xyz: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -149,11 +173,25 @@ def tsegnet_crops(feat: torch.Tensor, l0_points: torch.Tensor,
     return crop_feat, crop_mask, crop_idx
 
 
+@contextlib.contextmanager
+def _eval_mode(module: nn.Module):
+    """``module`` in eval mode inside the block, its own mode restored after."""
+    was = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was)
+
+
 class TSegNetModule(nn.Module):
-    """The whole tsegnet, eval mode. ``forward(feat, mask, center_points,
+    """The whole tsegnet. ``forward(feat, mask, center_points,
     center_valid)`` runs the centroid module and, given proposals, the crops
-    and the seg module; ``centroid_forward`` and ``seg_forward`` run each
-    half alone (the inference pipeline's two device programs)."""
+    and the seg module, in the module's mode; ``centroid_forward`` and
+    ``seg_forward`` run each half alone in eval mode (running statistics),
+    whatever the module's mode, as the JAX methods pass ``train=False``
+    (the inference pipeline's two device programs, and the training host
+    stage's centroid forward)."""
 
     def __init__(self, crop_size: int = 3072, run_seg_module: bool = True,
                  tiny_backbone: bool = False, *, device):
@@ -180,7 +218,9 @@ class TSegNetModule(nn.Module):
         return out
 
     def centroid_forward(self, feat, mask=None):
-        return self.cent_module(feat, mask)
+        with _eval_mode(self.cent_module):
+            return self.cent_module(feat, mask)
 
     def seg_forward(self, crop_feat, crop_mask=None):
-        return self.seg_module(crop_feat, crop_mask)
+        with _eval_mode(self.seg_module):
+            return self.seg_module(crop_feat, crop_mask)

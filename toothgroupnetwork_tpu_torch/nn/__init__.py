@@ -1,7 +1,7 @@
 """Building blocks (counterpart of toothgroupnetwork_tpu/nn)."""
 
-from .layers import (Dense, LayerNorm, MaskedBatchNorm, PointMLP, masked_max,
-                     masked_mean)
+from .layers import (Dense, Dropout, LayerNorm, MaskedBatchNorm, PointMLP,
+                     masked_max, masked_mean)
 
-__all__ = ["Dense", "LayerNorm", "MaskedBatchNorm", "PointMLP", "masked_max",
+__all__ = ["Dense", "Dropout", "LayerNorm", "MaskedBatchNorm", "PointMLP", "masked_max",
            "masked_mean"]

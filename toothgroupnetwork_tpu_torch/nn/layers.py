@@ -34,12 +34,17 @@ class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype``: input, weight and bias are
     cast to it, as flax's ``Dense(dtype=...)`` promotes them. Below float32
     the product is rounded to ``dtype`` before the bias is added, as flax
-    adds it; in float32 the bias is fused into the product."""
+    adds it; in float32 the bias is fused into the product.
+
+    ``zero_init`` marks a layer whose flax counterpart takes
+    ``kernel_init=zeros`` (its bias is zero anyway):
+    ``utils.weights.init_like_flax_`` reads it."""
 
     def __init__(self, din: int, dout: int, bias: bool = True, *, device,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
         super().__init__(din, dout, bias=bias, device=device)
         self.compute_dtype = dtype
+        self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -129,6 +134,33 @@ class LayerNorm(nn.Module):
         var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
+    from ``generator`` on the input's device (``train_step`` sets it for
+    its step and clears it after; the Trainer seeds it each step); the
+    identity in eval mode and at p = 0.
+    Train mode at p > 0 without a generator raises, as flax does without a
+    dropout key."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise ValueError("Dropout in train mode needs a generator "
+                             "(train_step(..., generator=...))")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class PointMLP(nn.Module):

@@ -17,8 +17,7 @@ import numpy as np
 import torch
 
 from ..models.tasks import _tsegnet_preset, build_tsegnet
-from ..models.tsegnet import tsegnet_crops
-from ..postprocess.clustering import dbscan
+from ..models.tsegnet import cluster_centres, tsegnet_crops
 from ..utils.weights import load_npz
 from .base import N_SAMPLE, nn_upsample, prep_mesh_feats, sample_on_device
 from .tgn import use_full_fp32
@@ -50,17 +49,11 @@ class TsegnetInferencePipeline:
         """Crop centres: DBSCAN over the moved l3 points with ``dist <
         0.3``, one centre (the mean) per cluster, noise dropped. Returns
         ``(centers [1, K_MAX, 3] with the 1e3 sentinel, valid [1, K_MAX])``."""
-        moved = (l3_xyz + offset)[dist < 0.3]
-        centers_list = []
-        if moved.shape[0] >= 3:
-            labels, _ = dbscan(moved, 0.05, 3)
-            centers_list = [moved[labels == lab].mean(axis=0)
-                            for lab in np.unique(labels) if lab != -1]
+        cents = cluster_centres(l3_xyz, offset, dist)[:K_MAX]
         centers = np.full((1, K_MAX, 3), 1e3, np.float32)
         valid = np.zeros((1, K_MAX), bool)
-        for i, c in enumerate(centers_list[:K_MAX]):
-            centers[0, i] = c
-            valid[0, i] = True
+        centers[0, :len(cents)] = cents
+        valid[0, :len(cents)] = True
         return centers, valid
 
     @torch.inference_mode()

@@ -7,9 +7,11 @@ the latest and best-val checkpoint slots, ``resume``, and the elastic retry
 that restores the last checkpoint after a failed epoch. The step is the
 explicit function :func:`train_step`; the validation pass runs the model in
 eval mode, so its attention layers run the kernel K3. A task's host stage
-(tgnet_bdl's boundary resampling) runs on the loader's numpy batch before
-each train and val step (:meth:`Trainer.host_batch`), after a padded val
-batch lost its padding.
+(tgnet_bdl's boundary resampling, tsegnet's crop proposals) runs on the
+loader's numpy batch before each train and val step
+(:meth:`Trainer.host_batch`), after a padded val batch lost its padding.
+The Trainer owns the dropout generator, on the model's device, seeded
+before each step from ``(config.seed + 1, step)`` (:func:`dropout_seed`).
 
 The data-parallel layer is not ported yet: ``data_parallel > 1`` raises.
 """
@@ -24,6 +26,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from ..nn.layers import Dropout
 from ..utils.device import resolve_device
 from ..utils.weights import init_like_flax_
 from .checkpoints import restore_train_checkpoint, save_train_checkpoint
@@ -53,20 +56,40 @@ def deterministic_algorithms(on: bool = True):
         torch.use_deterministic_algorithms(before, warn_only=warn)
 
 
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed before optimizer step ``step``: a
+    function of ``(seed + 1, step)`` alone, so that a resumed run draws
+    what an unbroken run draws (JAX: ``fold_in(PRNGKey(seed + 1), step)``;
+    the draws themselves differ from threefry's)."""
+    state = np.random.SeedSequence([seed + 1, step]).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
 def train_step(model, optimizer, task: "ModelTask", config, batch: dict,
-               deterministic: bool = True) -> dict:
+               deterministic: bool = True,
+               generator: torch.Generator | None = None) -> dict:
     """One step: the train-mode forward, the weighted sum of the task's
     losses, backward and the optimizer's update, under deterministic
-    algorithms unless ``deterministic`` is False. Returns each loss's value
-    (a detached tensor on the model's device)."""
+    algorithms unless ``deterministic`` is False. ``generator`` (on the
+    model's device) is every ``Dropout``'s for this step only; a model with
+    dropout needs one. Returns each loss's value (a detached tensor on the
+    model's device)."""
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    for m in drops:
+        m.generator = generator
     model.train()
-    with deterministic_algorithms(deterministic):
-        outputs = model(batch["feat"], batch.get("mask"), **task.forward_kwargs(batch))
-        losses = task.compute_losses(outputs, batch, config)
-        optimizer.zero_grad(set_to_none=True)
-        LossMap(losses).get_sum().backward()
-        zero_missing_grads(optimizer)
-        optimizer.step()
+    try:
+        with deterministic_algorithms(deterministic):
+            outputs = model(batch["feat"], batch.get("mask"),
+                            **task.forward_kwargs(batch))
+            losses = task.compute_losses(outputs, batch, config)
+            optimizer.zero_grad(set_to_none=True)
+            LossMap(losses).get_sum().backward()
+            zero_missing_grads(optimizer)
+            optimizer.step()
+    finally:
+        for m in drops:
+            m.generator = None
     return {k: v.detach() for k, (v, _) in losses.items()}
 
 
@@ -114,6 +137,7 @@ class Trainer:
         self.model = task.build_module(config, device=self.device)
         init_like_flax_(self.model, torch.Generator().manual_seed(config.seed))
         self.optimizer = make_optimizer(config.optimizer, self.model.parameters())
+        self.dropout_generator = torch.Generator(device=self.device)
         self.step = 0          # optimizer steps taken
         self.best_val = float("inf")
         self.epoch = 0
@@ -131,14 +155,16 @@ class Trainer:
 
     def host_batch(self, batch: dict) -> dict:
         """The batch with the task's host stage applied: the stage gets the
-        loader's numpy arrays (a mask of ones where there is none) and its
-        other fields, and the arrays it returns replace the batch's."""
+        loader's numpy arrays (a mask of ones where there is none), its
+        other fields and the optimizer steps taken, and the arrays it
+        returns replace the batch's."""
         if self.task.host_stage is None:
             return batch
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         arrays.setdefault("mask", np.ones(arrays["feat"].shape[:2], dtype=bool))
         host = {**batch, **arrays}
-        return {**host, **self.task.host_stage(self.model, host, self.config)}
+        return {**host, **self.task.host_stage(self.model, host, self.config,
+                                               step=self.step)}
 
     def device_batch(self, batch: dict) -> dict:
         """The batch's arrays as tensors on the device (a mask of ones where
@@ -162,8 +188,10 @@ class Trainer:
         except TypeError:
             n_batches = -1  # unsized loader: no epoch-end fallback fire
         for batch_idx, batch in enumerate(self.train_loader):
+            batch = self.device_batch(self.host_batch(batch))
+            self.dropout_generator.manual_seed(dropout_seed(self.config.seed, self.step))
             values = train_step(self.model, self.optimizer, self.task, self.config,
-                                self.device_batch(self.host_batch(batch)))
+                                batch, generator=self.dropout_generator)
             self.step += 1
             weighted = self._weighted(values, "step")
             meter.aggr(weighted)

@@ -99,21 +99,27 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise ``module`` from flax's distribution, drawn from
+    """Initialise ``module`` from flax's initialisers, drawn from
     ``generator``: every Dense weight ``lecun_normal`` (variance 1 / fan_in,
-    truncated normal), Dense biases zero, BatchNorm scale 1, bias 0, mean 0
-    and variance 1. The weights are drawn in module order."""
-    from ..nn.layers import MaskedBatchNorm
+    truncated normal) but zero where the layer is marked ``zero_init`` (the
+    flax module's ``kernel_init=zeros``: no draw), Dense biases zero,
+    BatchNorm scale 1, bias 0, mean 0 and variance 1, LayerNorm scale 1 and
+    bias 0. The weights are drawn in module order."""
+    from ..nn.layers import LayerNorm, MaskedBatchNorm
 
     lo, hi = ((1.0 + math.erf(s / math.sqrt(2.0))) / 2.0 for s in (-2.0, 2.0))
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
-                fan_in = m.weight.shape[1]
-                u = torch.rand(m.weight.shape, generator=generator, dtype=torch.float64)
-                z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
-                z = z.clamp(-2.0, 2.0) * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
-                m.weight.copy_(z.to(m.weight.device, m.weight.dtype))
+                if getattr(m, "zero_init", False):
+                    m.weight.zero_()
+                else:
+                    fan_in = m.weight.shape[1]
+                    u = torch.rand(m.weight.shape, generator=generator,
+                                   dtype=torch.float64)
+                    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+                    z = z.clamp(-2.0, 2.0) * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+                    m.weight.copy_(z.to(m.weight.device, m.weight.dtype))
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, MaskedBatchNorm):
@@ -121,4 +127,7 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
                 m.mean.zero_()
                 m.var.fill_(1.0)
+            elif isinstance(m, LayerNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
     return module
