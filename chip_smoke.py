@@ -44,6 +44,20 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      --config_path`` with ``"dtype": "bfloat16"``, the same checks, K1, K2
      and K3 launched and none of K4-K6; then steady calls of the three
      configurations in turns;
+ 7b. the device boundary route, which every pipeline on the card takes:
+     on each configuration's scan the purity, the masked fill, the
+     boundary 1-NN and the final labels bit-identical to the route on K1's
+     and K2's plain versions on the card; against the host route (a
+     pipeline around the same models set to the CPU's KD-tree route, for
+     the comparison only) on the same stage-1 labels, the 1-NN d2 within
+     rtol 1e-4, a 1-NN index swapped only at equal d2, the mask equal
+     outside 2.5/40 of ``bdl_ratio`` and on 0.99 of the vertices, and given
+     the host's mask the same fill; a repeated scan and ``run_many``
+     identical; K2 two launches more a scan than the host route, K1 as
+     many; both routes' phase seconds; K2 at the purity and boundary 1-NN
+     shapes and K1's masked fill timed against their plain versions and
+     bounds; K2's any-size kernel (k = 65, C = 300) equal to its plain
+     version, one launch a call, timed;
   8. the two entries no model layer calls (as in the JAX package): the
      row gather K8 through ``ops.gather.gather_neighbors`` under
      ``TGN_TPU_GATHER=mxu`` and the pre-projected attention K7 through its
@@ -216,41 +230,23 @@ def card() -> torch.device:
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds of ``fn`` on the card (CUDA events, after warm-up)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean milliseconds of ``fn`` on the card: CUDA events around ``reps``
+    back-to-back calls after ``warm`` (0 or 1) warm-up calls
+    (``utils.profiling.chained_time``)."""
+    from toothgroupnetwork_tpu_torch.utils.profiling import chained_time
+
+    return chained_time(fn, iters=reps, warmup=warm > 0, device=card()) * 1e3
 
 
 def graph_ms(fn, reps: int = 20) -> float:
     """Mean device milliseconds of ``fn``: ``reps`` calls captured in one
-    CUDA graph, two replays timed with CUDA events. No host time falls
-    between the launches, where ``cuda_ms`` counts it when a call's kernels
-    are shorter than its launches."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (2 * reps)
+    CUDA graph, a replay timed with CUDA events
+    (``utils.profiling.chained_time``). No host time falls between the
+    launches, where ``cuda_ms`` counts it when a call's kernels are shorter
+    than its launches."""
+    from toothgroupnetwork_tpu_torch.utils.profiling import chained_time
+
+    return chained_time(fn, iters=reps, graph=True, device=card()) * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -946,6 +942,306 @@ def phase_ab(pipes: dict, scan: Path, rounds: int = 2) -> None:
         log("ab", config=name, calls=len(calls),
             median_s={k: float(np.median([c[k] for c in calls])) for k in keys},
             wall_s=[c["wall_s"] for c in calls])
+
+
+# the device boundary phase: steady calls of each route in turns, and the
+# gates' tolerances: the 1-NN d2 of the routes within rtol 1e-4, a 1-NN
+# index only swapped between points whose d2 agree within float32 rounding
+# (rtol 1e-6), the mask equal outside 2.5/40 of bdl_ratio and on 0.99 of
+# the vertices (tests/test_tgn_pipeline.py:86-141: the KD-tree ranks in
+# float64, K2 in float32, so a 40-set may differ at its 40th place)
+BOUNDARY_ROUNDS = 3
+BOUNDARY_KNN_K = 40
+# K2's any-size kernel (k > 64 or C > 256): (B, M, N, C, k)
+KNN_SIZE_SHAPES = ((1, 3000, 3000, 3, 65), (1, 3000, 3000, 300, 20),
+                   (2, 700, 3000, 300, 65))
+
+
+class Recorded:
+    """Inside the block, each call of ``module.<name>`` is kept as (args,
+    kwargs, result)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class PlainVersions:
+    """Inside the block the port's K1 and K2 entries take their plain
+    versions on the card: the device boundary route's comparison, never a
+    path of the program."""
+
+    def __enter__(self):
+        import importlib
+
+        from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
+
+        fps_mod = importlib.import_module("toothgroupnetwork_tpu_torch.ops.fps")
+        knn_mod = importlib.import_module("toothgroupnetwork_tpu_torch.ops.knn")
+        self.saved = [(fps_mod, "fps_kernel", fps_mod.fps_kernel),
+                      (knn_mod, "knn_select", knn_mod.knn_select)]
+        fps_mod.fps_kernel, knn_mod.knn_select = (fps.fps_reference,
+                                                  knn.knn_select_reference)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def same(a, b) -> bool:
+    """Bit-identical tensors, arrays or numbers (a tensor held against its
+    host copy)."""
+    a, b = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x) for x in (a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and bool(np.array_equal(a, b))
+
+
+def phase_device_boundary(dev, pipes: dict, configs: dict, scans,
+                          records, kernels) -> dict:
+    """The device boundary route, which every pipeline on the card takes
+    (phases 5-7 built them through ``cli.infer``), on each configuration's
+    scan: the stage outputs bit-identical to the route on K1's and K2's
+    plain versions (mask, 1-NN index, d2 and label, the fill, the boundary
+    1-NN, the final labels), held to the host route on the same stage-1
+    labels (the gates above; given the host's mask, the fill identical), a
+    repeated scan and ``run_many`` identical, the launches a scan (K2 two
+    more than the host route, K1 as many), the phases' seconds each way.
+    The host route, for the comparison only, is a pipeline around the same
+    models with the CPU's route set. The default configuration's K2 and K1
+    shapes timed; K2's any-size kernel (k = 65, C = 300) equal to its plain
+    version. Returns each configuration's launches a device-route scan."""
+    from scipy.spatial import cKDTree
+
+    from toothgroupnetwork_tpu_torch.ops import farthest_point_sample
+    from toothgroupnetwork_tpu_torch.ops.kernels import knn
+    from toothgroupnetwork_tpu_torch.pipelines import tgn
+    from toothgroupnetwork_tpu_torch.pipelines.base import fps_sample_idx
+    from toothgroupnetwork_tpu_torch.postprocess import boundary
+    from toothgroupnetwork_tpu_torch.postprocess.clustering import first_label_ratio
+
+    t_phase = time.perf_counter()
+    scan = str(scans[0])
+    per_scan = {}
+    for name, dpipe in pipes.items():
+        if dpipe.variants()["boundary_route"] != "device":
+            raise AssertionError(f"device boundary ({name}): the pipeline on "
+                                 "the card does not take the device route")
+        hpipe = tgn.TgnInferencePipeline(
+            None, None, configs[name],
+            inject_modules=(dpipe.fps_module, dpipe.bdl_module), device=dev)
+        hpipe._boundary_on_device = False   # the comparison's host route
+        # one scan each way: the launches, the device scan's stage inputs
+        counts, out = {}, {}
+        for route, p in (("host", hpipe), ("device", dpipe)):
+            for k in kernels:
+                k.launches = 0
+            with Recorded(tgn, "boundary_sampled_feats") as clouds, \
+                    Recorded(tgn, "boundary_nn1") as nn1s, \
+                    Recorded(tgn, "final_transfer") as transfers:
+                out[route] = p(scan)
+                torch.cuda.synchronize()
+            counts[route] = {k.__name__: k.launches for k in kernels}
+        per_scan[name] = counts["device"]
+        (args, kw, dev_out), = clouds
+        n_bd = dev_out[2]
+        d_knn = counts["device"]["knn_select"] - counts["host"]["knn_select"]
+        d_fps = counts["device"]["fps"] - counts["host"]["fps"]
+        if (d_knn, d_fps) != ((2 if n_bd else 1), 0):
+            raise AssertionError(f"device boundary ({name}): K2 {d_knn:+d} and "
+                                 f"K1 {d_fps:+d} launches beside the host route")
+        again = dpipe(scan)
+        if not all(same(again[k], out["device"][k]) for k in ("sem", "ins")):
+            raise AssertionError(f"device boundary ({name}): a repeated scan differs")
+
+        # the stage outputs, kernels against their plain versions on the card
+        labels, org_np, smp_np = args[0], args[1], args[2]
+        org_dev, smp_dev = kw["org_dev"], kw["sampled_dev"]
+        info = dpipe.boundary_info
+        k = min(BOUNDARY_KNN_K, smp_np.shape[0])
+        lab_dev = torch.from_numpy(labels).to(dev)
+        purity = boundary.boundary_purity_device(org_dev[:, :3], smp_dev[:, :3],
+                                                 lab_dev, k, info["bdl_ratio"])
+        with PlainVersions():
+            purity_plain = boundary.boundary_purity_device(
+                org_dev[:, :3], smp_dev[:, :3], lab_dev, k, info["bdl_ratio"])
+            cloud_plain = boundary.boundary_sampled_feats(*args, **kw)
+            nn1_plain = (tgn.boundary_nn1(*nn1s[0][0]) if n_bd else None)
+        stage_same = {
+            "mask": same(purity[0], purity_plain[0]),
+            "nn1_label": same(purity[1], purity_plain[1]),
+            "nn1_idx": same(purity[2], purity_plain[2]),
+            "nn1_d2": same(purity[3], purity_plain[3]),
+            "fill_rows": all(same(a, b) for a, b in zip(dev_out, cloud_plain)),
+            "boundary_nn1": (not n_bd or all(
+                same(a, b) for a, b in zip(nn1s[0][2], nn1_plain)))}
+        targs = transfers[0][0]
+        plain_labels = tgn.final_transfer(
+            targs[0], targs[1], *(nn1_plain or (None, None)), *targs[4:])
+        stage_same["final_labels"] = same(plain_labels, transfers[0][2])
+        if not all(stage_same.values()):
+            raise AssertionError(f"device boundary ({name}): kernels differ from "
+                                 f"their plain versions: {stage_same}")
+
+        # the host route on the same stage-1 labels
+        host_out = boundary.boundary_sampled_feats(*args, **dict(kw, org_dev=None))
+        bd_h, _, nn1_h, d2_h = boundary.boundary_purity(
+            org_np[:, :3].astype(np.float32), smp_np[:, :3], labels, k,
+            info["bdl_ratio"])
+        _, nn40 = cKDTree(smp_np[:, :3]).query(org_np[:, :3].astype(np.float32),
+                                               k=k, workers=-1)
+        ratio_h = first_label_ratio(labels[nn40])
+        bd_d = purity[0].cpu().numpy()
+        nn1_d, d2_d = purity[2].cpu().numpy(), purity[3].cpu().numpy()
+        near = np.abs(ratio_h - info["bdl_ratio"]) <= 2.5 / k
+        agree = bd_d == bd_h
+        swap = nn1_d != nn1_h
+        d2_ok = np.abs(d2_d - d2_h) <= 1e-4 * np.abs(d2_h) + 1e-9
+        swap_ok = np.abs(d2_d - d2_h)[swap] <= 1e-6 * np.abs(d2_h)[swap] + 1e-12
+        # given the host's mask, the masked fill and the host's fill
+        need = info["num_of_all_points"] - min(int(bd_h.sum()),
+                                               info["num_of_bdl_points"])
+        non_bd = np.flatnonzero(~bd_h)
+        fill_same = None
+        if non_bd.shape[0] > need > 0:
+            fill_same = same(
+                farthest_point_sample(org_dev[:, :3], need,
+                                      torch.from_numpy(~bd_h).to(dev)).long(),
+                non_bd[fps_sample_idx(org_np[non_bd, :3], need, device=dev)])
+        versus_host = {
+            "nn1_d2_within_1e-4": bool(d2_ok.all()),
+            "nn1_swaps": int(swap.sum()),
+            "nn1_swaps_at_equal_d2": bool(swap_ok.all()),
+            "mask_agree": float(agree.mean()),
+            "mask_agree_outside_band": bool(agree[~near].all()),
+            "fill_given_host_mask_identical": fill_same,
+            "cloud_identical": all(same(a, b) for a, b in
+                                   zip(dev_out[:3] + dev_out[5:],
+                                       host_out[:3] + host_out[5:])),
+            "final_labels_agree": float(np.mean(
+                (out["device"]["sem"] == out["host"]["sem"])
+                & (out["device"]["ins"] == out["host"]["ins"])))}
+        if not (versus_host["nn1_d2_within_1e-4"]
+                and versus_host["nn1_swaps_at_equal_d2"]
+                and versus_host["mask_agree_outside_band"]
+                and versus_host["mask_agree"] >= 0.99 and fill_same is not False):
+            raise AssertionError(f"device boundary ({name}) against the host "
+                                 f"route: {versus_host}")
+
+        # run_many on the device route against serial calls
+        paths = [str(p) for p in scans]
+        serial = [out["device"]] + [dpipe(p) for p in paths[1:]]
+        many = dpipe.run_many(paths, workers=3, prep_workers=0)
+        if not all(same(g[key], w[key]) for g, w in zip(many, serial)
+                   for key in ("sem", "ins")):
+            raise AssertionError(f"device boundary ({name}): run_many differs "
+                                 "from serial calls")
+
+        # steady calls of the two routes in turns
+        samples = {"host": [], "device": []}
+        for _ in range(BOUNDARY_ROUNDS):
+            for route, p in (("host", hpipe), ("device", dpipe)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p(scan)
+                torch.cuda.synchronize()
+                samples[route].append({"wall_s": time.perf_counter() - t0,
+                                       **p.timings})
+        median = {route: {key: float(np.median([c[key] for c in calls]))
+                          for key in calls[0]}
+                  for route, calls in samples.items()}
+        log("device_boundary", config=name, n_boundary=n_bd,
+            fill_points=info["num_of_all_points"] - n_bd,
+            launches_host=counts["host"], launches_device=counts["device"],
+            stage_outputs_identical_to_plain=stage_same, versus_host=versus_host,
+            repeat_identical=True, run_many_identical=True,
+            median_s=median, variants=dpipe.variants())
+
+        if name == "default":
+            time_boundary_kernels(dev, records, org_dev, smp_dev, bd_d, need,
+                                  nn1s[0][0] if n_bd else None)
+
+    # K2's any-size kernel (k > 64 or C > 256): equal to its plain version on
+    # the same inputs on the card, one launch a call, timed beside it; each
+    # (query, point) pair 2C + 3 operations, as the general-C route's
+    rec_knn = records[1]
+    launches = knn.knn_select.launches
+    gen = np.random.default_rng(7)
+    for b, m, n, c, k in KNN_SIZE_SHAPES:
+        q = torch.from_numpy(gen.standard_normal((b, m, c)).astype(np.float32)).to(dev)
+        pts = torch.from_numpy(gen.standard_normal((b, n, c)).astype(np.float32)).to(dev)
+        gi, gd = knn.knn_select(q, pts, k)
+        ri, rd = knn.knn_select_reference(q, pts, k)
+        if not (same(gi, ri) and same(gd, rd)):
+            raise AssertionError(f"K2 any-size [{b},{m}]x[{b},{n}] C={c} k={k} "
+                                 "differs from its plain version")
+        if knn.knn_select.launches != launches + 1:
+            raise AssertionError("K2's any-size call did not count one launch")
+        rec_knn.add(f"any-size [{b},{m}]x[{b},{n}] C={c} k={k}", 0.0,
+                    cuda_ms(lambda: knn.knn_select(q, pts, k), 3),
+                    cuda_ms(lambda: knn.knn_select_reference(q, pts, k), 1),
+                    ops=(2.0 * c + 3.0) * b * m * n, moved=nbytes(q, pts, gi, gd),
+                    route=knn.knn_route(c, k), identical=True)
+        launches = knn.knn_select.launches
+    log("device_boundary", seconds=time.perf_counter() - t_phase,
+        launches_per_scan=per_scan)
+    return per_scan
+
+
+def time_boundary_kernels(dev, records, org_dev, smp_dev, bd_mask, need,
+                          nn1_args) -> None:
+    """K2 at the purity shape (every vertex's 40 nearest of the sample) and
+    at the boundary 1-NN's (its 4 nearest boundary points), K1's masked
+    fill, each against its plain version and its bound, into the kernels
+    line."""
+    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
+    from toothgroupnetwork_tpu_torch.pipelines.tgn import NN1_CANDIDATES
+
+    rec_fps, rec_knn = records[0], records[1]
+    q = org_dev[None, :, :3].contiguous()
+    shapes = [(q, smp_dev[None, :, :3].contiguous(), BOUNDARY_KNN_K, "purity")]
+    if nn1_args is not None:
+        shapes.append((nn1_args[0][None].contiguous(),
+                       nn1_args[1][None].contiguous(), NN1_CANDIDATES, "boundary 1-NN"))
+    for qry, pts, k, what in shapes:
+        gi, gd = knn.knn_select(qry, pts, k)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(
+            knn.knn_select_reference(qry, pts, k)), 1, warm=0)
+        if not (same(gi, plain[0][0]) and same(gd, plain[0][1])):
+            raise AssertionError(f"K2 at the {what} shape differs from its plain "
+                                 "version")
+        rec_knn.add(f"{what} [1,{qry.shape[1]}]x[1,{pts.shape[1]}] k={k}", 0.0,
+                    cuda_ms(lambda: knn.knn_select(qry, pts, k), 3), plain_ms,
+                    ops=9.0 * qry.shape[1] * pts.shape[1],
+                    moved=nbytes(qry, pts, gi, gd),
+                    device_ms=graph_ms(lambda: knn.knn_select(qry, pts, k), 3),
+                    device_boundary=True, identical=True)
+    if need > 0:
+        valid = torch.from_numpy(~bd_mask).to(dev)[None]
+        got = fps.fps(q, need, valid)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(fps.fps_reference(q, need, valid)),
+                           1, warm=0)
+        if not same(got, plain[0]):
+            raise AssertionError("K1's masked fill differs from its plain version")
+        n_valid = int(valid.sum())
+        ms = cuda_ms(lambda: fps.fps(q, need, valid), 3)
+        rec_fps.add(f"masked fill [1,{q.shape[1]}] valid {n_valid}->{need}", 0.0,
+                    ms, plain_ms, ops=10.0 * need * n_valid, moved=nbytes(q, valid, got),
+                    cluster=fps.cluster_size(q.shape[1]), us_per_step=ms * 1e3 / need,
+                    device_boundary=True, identical=True)
 
 
 def profile_call(call, what: str) -> float:
@@ -2346,6 +2642,7 @@ def main() -> int:
         # the cell-attention and the bfloat16 configurations through
         # --config_path, one scan each
         pipes = {"default": pipe}
+        configs = {"default": None}
         slice_launches = {}
         for name, params, kernels, unused in (
                 ("cell", {"cell_attention": True}, base + cell, entry),
@@ -2355,12 +2652,15 @@ def main() -> int:
             (one_dir / scans[0].name).write_bytes(scans[0].read_bytes())
             cfg = tgnet_fps_config()
             cfg["model_parameter"].update(params)
+            configs[name] = cfg
             cfg_path = work / f"{name}_config.json"
             cfg_path.write_text(json.dumps(cfg))
             slice_launches[name], pipes[name] = phase_slice(
                 dev, ckpts, [one_dir / scans[0].name], work / f"out_{name}",
                 kernels, unused, config=cfg_path, what=f"{name}_slice")
         phase_ab(pipes, scans[0])
+        boundary = phase_device_boundary(dev, pipes, configs, scans, records,
+                                         base + cell + entry)
         entry_launches = phase_entries(dev, feats0)
         phase_serve_many(pipes, work, base + cell + entry)
         train = phase_train(dev, work, ckpts, scans[0])
@@ -2391,6 +2691,9 @@ def main() -> int:
         # the families' training (phase 13): each family's launches a step
         rec.entry["family_train_launches_per_step"] = {
             family: seen.get(name, 0) for family, seen in family_train.items()}
+        # the device boundary route (phase 7b): a scan's launches
+        rec.entry["device_boundary_launches_per_scan"] = {
+            config: seen.get(name, 0) for config, seen in boundary.items()}
     # each K3 shape with its launches a scan, per configuration
     for row in records[2].entry["shapes"]:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)

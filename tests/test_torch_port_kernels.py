@@ -226,6 +226,39 @@ class TestKernelsOnCard:
             assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
         assert knn.knn_select.launches_by_shape[c] == before + len(cases)
 
+    @pytest.mark.parametrize("c,k", [(3, 65), (300, 20), (300, 65), (64, 100),
+                                     (3, 300)])
+    def test_knn_size_route(self, cuda_device, gen, c, k):
+        """Beyond the warp kernels' limits (k > 64 or C > 256) ``knn_select``
+        launches ``tgn_knn_any`` on the card, equal to the plain version on
+        the CPU, indices and d2 bit for bit: a masked self-query, M != N,
+        duplicated points (ties to the lower index) and the k > n tail
+        beside masked points; each call one launch.
+        Through ``knn_points`` too, as a DGCNN with k > 64 calls it."""
+        assert knn.knn_route(c, k) == "tgn_knn_any"
+        launches = knn.knn_select.launches
+        pts = _cloud(gen, 2, 3000, c, device=cuda_device)
+        bias = torch.where(torch.from_numpy(gen.random((2, 3000)) > 0.3),
+                           0.0, 1e10).to(torch.float32).to(cuda_device)
+        few = _cloud(gen, 2, 10, c, device=cuda_device)
+        few_bias = torch.zeros((2, 10), device=cuda_device)
+        few_bias[:, ::3] = 1e10
+        dup = pts[:, :1500].repeat(1, 2, 1).contiguous()   # ties: lower index
+        cases = ((pts, pts, bias), (_cloud(gen, 2, 700, c, device=cuda_device),
+                                    pts, None),
+                 (dup, dup, None),
+                 (_cloud(gen, 2, 50, c, device=cuda_device), few, few_bias))
+        for qry, p, b in cases:
+            gi, gd = knn.knn_select(qry, p, k, b)
+            ri, rd = knn.knn_select_reference(qry.cpu(), p.cpu(), k,
+                                              None if b is None else b.cpu())
+            assert torch.equal(gi.cpu(), ri) and torch.equal(gd.cpu(), rd)
+        assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
+        idx, _ = knn_self(pts, k, bias == 0)
+        ref, _ = knn_self(pts.cpu(), k, (bias == 0).cpu())
+        assert torch.equal(idx.cpu(), ref)
+        assert knn.knn_select.launches == launches + len(cases) + 1
+
     @pytest.mark.parametrize("b,n,kk,c", [(2, 300, 16, 32), (1, 500, 36, 16),
                                           (1, 93, 24, 512), (2, 64, 36, 512),
                                           (2, 300, 10, 16)] + MAIN_PATH_K3)

@@ -198,8 +198,8 @@ class TestLosses:
         np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-6)
 
     # (stride, points a stage): (1, 4, 4) takes the kNN kernel's twin for
-    # the sub-scene labels (kr 1 and 4); (70, 1) the plain selection past
-    # its k <= 64 (kr 70)
+    # the sub-scene labels (kr 1 and 4); (70, 1) its any-size kernel's
+    # past k = 64 (kr 70)
     @pytest.mark.parametrize("stride,sizes", [((1, 4, 4), (128, 32, 8)),
                                               ((70, 1), (128, 16))])
     def test_cbl_per_stage(self, rng, stride, sizes):

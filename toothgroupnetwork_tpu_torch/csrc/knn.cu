@@ -1,4 +1,5 @@
-// K2: exact k-nearest-neighbour selection, k <= 64, one warp per query.
+// K2: exact k-nearest-neighbour selection, one warp per query for k <= 64
+// (C = 3 and C <= 256), one block per query beyond (knn_kernel_any).
 //
 // Replaces toothgroupnetwork_tpu/ops/pallas/knn_kernel.py:knn_pallas_select
 // (_knn_kernel). On the TPU that kernel is opt-in and the default selection is
@@ -330,6 +331,163 @@ knn_kernel_c(const float* __restrict__ q, const float* __restrict__ p,
     }
 }
 
+// The any-size route (k > kMaxK or C > kMaxC, where the warp's list no
+// longer fits two register banks or the query rows no longer fit shared
+// memory): the same contract, one block of kAnyThreads threads a query.
+// Each tile of kAnyThreads candidates (one a thread) is read kChunkC
+// channels at a time through shared memory, transposed as in
+// knn_kernel_c, the distance accumulated in the plain twin's order; any C
+// fits. The sorted list of k (d2, index) keys lives in two rows of global
+// memory (the output and a scratch row, in turns), as long as k requires.
+// A tile's candidates below the k-th key are compacted into shared memory,
+// sorted by rank (each counts the keys below its own: keys are unique, so
+// the ranks are a permutation and the order of the compaction's atomics
+// does not show), and merged with the list by rank: a key's place in the
+// merged list is its own index plus the number of keys of the other list
+// below it (a binary search). The merged list keeps its first k keys, and
+// the k-th key is the next tile's bar. Deterministic, no float atomics.
+// What bounds it: the M x N x C distance stream, each candidate tile read
+// once a query (no reuse across queries); no preset reaches this route.
+constexpr int kAnyThreads = 256;
+constexpr int kChunkC = 32;
+
+// keys of the sorted (d, i)[0, len) below (kd, ki)
+__device__ __forceinline__ int rank_in(const float* d, const int* i, int len,
+                                       float kd, int ki) {
+    int lo = 0, hi = len;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (key_less(d[mid], i[mid], kd, ki)) {
+            lo = mid + 1;
+        } else {
+            hi = mid;
+        }
+    }
+    return lo;
+}
+
+__global__ void __launch_bounds__(kAnyThreads)
+knn_kernel_any(const float* __restrict__ q, const float* __restrict__ p,
+               const float* __restrict__ bias, int m, int n, int c, int k,
+               int* out_idx, float* out_d2, int* scratch_idx, float* scratch_d2) {
+    __shared__ float s_p[kChunkC][kAnyThreads + 1];   // candidates transposed
+    __shared__ float s_q[kChunkC];
+    __shared__ float s_cd[kAnyThreads], s_sd[kAnyThreads];   // survivors, sorted
+    __shared__ int s_ci[kAnyThreads], s_si[kAnyThreads];
+    __shared__ int s_count;
+    __shared__ float s_q2, s_kd;
+    __shared__ int s_ki;
+    const size_t b = blockIdx.y;
+    const int row = blockIdx.x;
+    const int tid = threadIdx.x;
+    const size_t at = (b * (size_t)m + row) * k;
+    q += (b * (size_t)m + row) * c;
+    p += b * (size_t)n * c;
+    if (bias != nullptr) bias += b * (size_t)n;
+    float* list_d[2] = {out_d2 + at, scratch_d2 + at};
+    int* list_i[2] = {out_idx + at, scratch_idx + at};
+    int cur = 0, len = 0;
+
+    if (tid == 0) {
+        float acc = __fmul_rn(q[0], q[0]);
+        for (int ch = 1; ch < c; ++ch) acc = __fadd_rn(acc, __fmul_rn(q[ch], q[ch]));
+        s_q2 = acc;
+        s_kd = CUDART_INF_F;
+        s_ki = INT_MAX;
+    }
+    for (int base = 0; base < n; base += kAnyThreads) {
+        const int t = base + tid;
+        const int rows = min(kAnyThreads, n - base);
+        float cross = 0.f, p2 = 0.f;
+        for (int c0 = 0; c0 < c; c0 += kChunkC) {
+            const int cc = min(kChunkC, c - c0);
+            __syncthreads();
+            for (int i = tid; i < rows * cc; i += kAnyThreads) {
+                const int r = i / cc;
+                s_p[i - r * cc][r] = p[(size_t)(base + r) * c + c0 + (i - r * cc)];
+            }
+            if (tid < cc) s_q[tid] = q[c0 + tid];
+            __syncthreads();
+            if (tid < rows) {
+                for (int j = 0; j < cc; ++j) {
+                    const float v = s_p[j][tid];
+                    if (c0 + j == 0) {
+                        cross = __fmul_rn(s_q[0], v);
+                        p2 = __fmul_rn(v, v);
+                    } else {
+                        cross = __fadd_rn(cross, __fmul_rn(s_q[j], v));
+                        p2 = __fadd_rn(p2, __fmul_rn(v, v));
+                    }
+                }
+            }
+        }
+        if (tid == 0) s_count = 0;
+        __syncthreads();
+        if (tid < rows) {
+            const float e = __fadd_rn(__fsub_rn(s_q2, __fmul_rn(2.f, cross)), p2);
+            const float d = __fadd_rn(fmaxf(e, 0.f), bias != nullptr ? bias[t] : 0.f);
+            if (key_less(d, t, s_kd, s_ki)) {
+                const int slot = atomicAdd(&s_count, 1);
+                s_cd[slot] = d;
+                s_ci[slot] = t;
+            }
+        }
+        __syncthreads();
+        const int cnt = s_count;
+        if (cnt == 0) continue;   // block-uniform
+        if (tid < cnt) {
+            const float d = s_cd[tid];
+            const int i = s_ci[tid];
+            int r = 0;
+            for (int j = 0; j < cnt; ++j) r += key_less(s_cd[j], s_ci[j], d, i);
+            s_sd[r] = d;
+            s_si[r] = i;
+        }
+        __syncthreads();
+        const int merged = min(len + cnt, k);
+        const float* old_d = list_d[cur];
+        const int* old_i = list_i[cur];
+        float* new_d = list_d[cur ^ 1];
+        int* new_i = list_i[cur ^ 1];
+        for (int j = tid; j < len; j += kAnyThreads) {
+            const float d = old_d[j];
+            const int i = old_i[j];
+            const int r = j + rank_in(s_sd, s_si, cnt, d, i);
+            if (r < merged) {
+                new_d[r] = d;
+                new_i[r] = i;
+            }
+        }
+        for (int j = tid; j < cnt; j += kAnyThreads) {
+            const int r = j + rank_in(old_d, old_i, len, s_sd[j], s_si[j]);
+            if (r < merged) {
+                new_d[r] = s_sd[j];
+                new_i[r] = s_si[j];
+            }
+        }
+        __syncthreads();
+        cur ^= 1;
+        len = merged;
+        if (tid == 0 && len == k) {
+            s_kd = list_d[cur][k - 1];
+            s_ki = list_i[cur][k - 1];
+        }
+    }
+    __syncthreads();
+    // the list into the output row; k > n: index 0 at 1e10 past the n keys
+    for (int j = tid; j < k; j += kAnyThreads) {
+        if (j < len) {
+            if (cur != 0) {
+                out_d2[at + j] = list_d[cur][j];
+                out_idx[at + j] = list_i[cur][j];
+            }
+        } else {
+            out_d2[at + j] = 1e10f;
+            out_idx[at + j] = 0;
+        }
+    }
+}
+
 }  // namespace
 
 // q [B, M, 3], p [B, N, 3] f32; bias [B, N] f32 or null; out_idx [B, M, k]
@@ -356,5 +514,20 @@ extern "C" int tgn_knn_c(const float* q, const float* p, const float* bias, int 
     dim3 grid((m + kWarpsC - 1) / kWarpsC, b);
     knn_kernel_c<<<grid, kWarpsC * 32, smem, stream>>>(q, p, bias, m, n, c, k, tile,
                                                         out_idx, out_d2);
+    return (int)cudaGetLastError();
+}
+
+// Any k >= 1 and C >= 1 (knn_kernel_any): q [B, M, C], p [B, N, C] f32; bias
+// [B, N] f32 or null; out_idx [B, M, k] int32, out_d2 [B, M, k] f32, and
+// scratch rows of the same shapes. Returns cudaGetLastError() after the
+// launch.
+extern "C" int tgn_knn_any(const float* q, const float* p, const float* bias,
+                           int b, int m, int n, int c, int k, int* out_idx,
+                           float* out_d2, int* scratch_idx, float* scratch_d2,
+                           cudaStream_t stream) {
+    if (k < 1 || c < 1) return (int)cudaErrorInvalidValue;
+    dim3 grid(m, b);
+    knn_kernel_any<<<grid, kAnyThreads, 0, stream>>>(q, p, bias, m, n, c, k, out_idx,
+                                                     out_d2, scratch_idx, scratch_d2);
     return (int)cudaGetLastError();
 }

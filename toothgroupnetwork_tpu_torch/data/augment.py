@@ -121,6 +121,16 @@ class Augmentator:
         return mesh_arr
 
 
+def default_augmenter() -> Augmentator:
+    """The reference's default train-time pipeline (train_config_maker.py:23):
+    Scaling [0.85, 1.15], Rotation [-30, 30] deg about z, Translation [-0.2, 0.2]."""
+    return Augmentator([
+        Scaling([0.85, 1.15]),
+        Rotation([-30, 30], "fixed"),
+        Translation([-0.2, 0.2]),
+    ])
+
+
 _AUG_REGISTRY = {"scaling": Scaling, "rotation": Rotation, "translation": Translation}
 
 

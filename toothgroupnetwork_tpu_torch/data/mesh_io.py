@@ -65,11 +65,13 @@ def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarra
     return np.divide(normals, norm, out=np.zeros_like(normals), where=norm > 0)
 
 
-def load_mesh_arr(path: str) -> np.ndarray:
+def load_mesh_arr(path: str, return_faces: bool = False):
     """``[N, 6]`` float64 xyz + unit vertex normals of an .obj (the
-    preprocessing's and the boundary engine's feature layout)."""
+    preprocessing's and the boundary engine's feature layout), and with
+    ``return_faces`` its faces beside them."""
     vertices, faces = parse_obj(path)
-    return np.concatenate([vertices, compute_vertex_normals(vertices, faces)], axis=1)
+    arr = np.concatenate([vertices, compute_vertex_normals(vertices, faces)], axis=1)
+    return (arr, faces) if return_faces else arr
 
 
 def subdivide_midpoint(vertices: np.ndarray, faces: np.ndarray,

@@ -11,10 +11,9 @@ toothgroupnetwork_tpu/losses/cbl_loss.py), per up-stage of the backbone:
     latent distances, the max subtracted, temperature 1;
   * the mean over the kept rows, times 0.1.
 
-The ``kr``-NN selection takes no gradient: through the kNN kernel K2 for
-``kr <= 64``, beyond it the plain distance pass and stable sort that
-``make_crops`` uses (the JAX package computes this selection outside any
-Pallas kernel)."""
+The ``kr``-NN selection takes no gradient and runs through the kNN kernel
+K2 at any ``kr`` (beyond 64 its any-size kernel; the JAX package computes
+this selection outside any Pallas kernel)."""
 
 from __future__ import annotations
 
@@ -23,8 +22,7 @@ import math
 import torch
 from torch.nn import functional as F
 
-from ..ops import index_points, knn_points, smallest_k, square_distance
-from ..ops.kernels.knn import MAX_K
+from ..ops import index_points, knn_points
 
 _EPS = 1e-12
 
@@ -32,12 +30,7 @@ _EPS = 1e-12
 def _subscene_knn(query, points, k, p_mask):
     """Indices ``[B, M, k]`` of the exact k nearest ``points`` of each query
     (masked points biased by 1e10, ties to the lower index)."""
-    if k <= MAX_K:
-        return knn_points(query, points, k, None, p_mask, need_dist=False)[0]
-    d2 = square_distance(query.to(torch.float32), points.to(torch.float32))
-    if p_mask is not None:
-        d2 = d2 + torch.where(p_mask.to(torch.bool), 0.0, 1e10)[:, None, :]
-    return smallest_k(d2, k)[0]
+    return knn_points(query, points, k, None, p_mask, need_dist=False)[0]
 
 
 def cbl_loss_per_stage(cbl_stages: list[dict], target: torch.Tensor,

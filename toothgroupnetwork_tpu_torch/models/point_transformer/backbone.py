@@ -347,13 +347,28 @@ class PointTransformerSeg(nn.Module):
                     prepare_layouts(params, m.dtype, dev,
                                     gathered=self.cell_attention)
 
+    def _cells_apply(self, b: int, n: int) -> bool:
+        """Whether a stage of ``b`` clouds of ``n`` points in the caller's
+        order takes the cell path: not in train mode, B == 1, N a multiple
+        of 8, and not ``TGN_TPU_CELLS=off`` in the environment (the JAX
+        package's switch)."""
+        return (self.cell_attention and not self.training and b == 1
+                and n % 8 == 0
+                and os.environ.get("TGN_TPU_CELLS", "on") != "off")
+
+    def attention_entry(self, b: int, n: int) -> str:
+        """The attention entry of the first stage's layers on ``b`` clouds of
+        ``n`` points: ``"unfused"`` in train mode, ``"K6"`` where the cell
+        path applies, else ``"K3"``."""
+        if self.training:
+            return "unfused"
+        return "K6" if self.stride[0] == 1 and self._cells_apply(b, n) else "K3"
+
     def _cell_ctx(self, p, knn_idx):
         """The stage's ``(cand, pos)`` candidate context, or None where the
-        path does not apply: train mode, B != 1, N not a multiple of 8, or
-        ``TGN_TPU_CELLS=off`` in the environment (the JAX package's switch)."""
+        path does not apply (:meth:`_cells_apply`)."""
         b, n, _ = knn_idx.shape
-        if (not self.cell_attention or self.training or b != 1 or n % 8
-                or os.environ.get("TGN_TPU_CELLS", "on") == "off"):
+        if not self._cells_apply(b, n):
             return None
         cand, pos, _ = build_cell_candidates(knn_idx[0], self.cell_slots)
         return cand, pos_with_self_fallback(pos, self.cell_slots * 8)

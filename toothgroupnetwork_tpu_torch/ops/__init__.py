@@ -4,10 +4,10 @@ toothgroupnetwork_tpu/ops/__init__.py); the selection kernels live in
 
 from .ball_query import ball_query
 from .distance import pairwise_sqdist, square_distance
-from .fps import farthest_point_sample
+from .fps import farthest_point_sample, fps
 from .gather import group_points, index_points
 from .interpolate import knn_interpolate, three_nn_interpolate
-from .knn import knn_points, knn_self, smallest_k
+from .knn import knn, knn_points, knn_self, smallest_k
 from .misc import aggregation, subtraction
 from .sampling import sample_and_group, sample_and_group_all
 
@@ -15,8 +15,10 @@ __all__ = [
     "aggregation",
     "ball_query",
     "farthest_point_sample",
+    "fps",
     "group_points",
     "index_points",
+    "knn",
     "knn_interpolate",
     "knn_points",
     "knn_self",

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels.fps import fps
+from .kernels.fps import fps as fps_kernel
 
 
 def farthest_point_sample(xyz: torch.Tensor, n_samples: int,
@@ -21,4 +21,10 @@ def farthest_point_sample(xyz: torch.Tensor, n_samples: int,
         return farthest_point_sample(
             xyz[None], n_samples, None if mask is None else mask[None])[0]
     valid = None if mask is None else mask.to(torch.bool).contiguous()
-    return fps(xyz.to(torch.float32).contiguous(), n_samples, valid)
+    return fps_kernel(xyz.to(torch.float32).contiguous(), n_samples, valid)
+
+
+def fps(xyz: torch.Tensor, n_samples: int,
+        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Alias of :func:`farthest_point_sample` (the JAX package's name)."""
+    return farthest_point_sample(xyz, n_samples, mask)

@@ -17,6 +17,15 @@ runs ``tgn_knn`` (float4 candidate tiles, the seed window), any other C up
 to :data:`MAX_C` ``tgn_knn_c`` (query rows and transposed candidate tiles
 in shared memory, the distance summed channel by channel in the plain
 twin's order), as DGCNN selects in feature space at C = 6 and 64.
+
+Beyond the warp kernels' limits (k > :data:`MAX_K`, whose list no longer
+fits a warp's registers, or C > :data:`MAX_C`, whose query rows no longer fit
+its shared memory) ``tgn_knn_any`` takes the call: one block a query, the
+channels read through shared memory in chunks and the sorted list of k keys
+in global memory, merged tile by tile (csrc/knn.cu), as
+``knn_pallas_select`` selects any k over any C inside its own body. The
+route follows from the shape alone (:func:`knn_route`); no preset reaches
+the third (DGCNN's k = 20, ``nsample`` <= 36, the CBL loss's k <= 64).
 """
 
 from __future__ import annotations
@@ -29,6 +38,16 @@ from ._launch import count_launch, on_cpu, require, stream_of
 
 MAX_K = 64
 MAX_C = 256
+
+
+def knn_route(c: int, k: int) -> str:
+    """The kernel :func:`knn_select` launches on a CUDA tensor for C
+    channels and k neighbours: ``"tgn_knn"`` (C = 3), ``"tgn_knn_c"`` (any
+    other C up to :data:`MAX_C`), each for k up to :data:`MAX_K`, else
+    ``"tgn_knn_any"``."""
+    if k > MAX_K or c > MAX_C:
+        return "tgn_knn_any"
+    return "tgn_knn" if c == 3 else "tgn_knn_c"
 
 
 def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
@@ -44,29 +63,37 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
     require(points, "points", torch.float32, 3, dev)
     b, m, c = query.shape
     n = points.shape[1]
-    if points.shape[2] != c or points.shape[0] != b or not 1 <= c <= MAX_C:
+    if points.shape[2] != c or points.shape[0] != b or c < 1:
         raise ValueError(f"knn: query {tuple(query.shape)} points "
-                         f"{tuple(points.shape)} (1 <= C <= {MAX_C})")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn kernel takes 1 <= k <= {MAX_K}, got {k}")
+                         f"{tuple(points.shape)} (C >= 1)")
+    if k < 1:
+        raise ValueError(f"knn takes k >= 1, got {k}")
     if bias is not None:
         require(bias, "bias", torch.float32, 2, dev)
         if tuple(bias.shape) != (b, n):
             raise ValueError(f"bias {tuple(bias.shape)} != {(b, n)}")
+    route = knn_route(c, k)
     with torch.cuda.device(dev):
         lib = build.library()
         idx = torch.empty((b, m, k), dtype=torch.int32, device=dev)
         d2 = torch.empty((b, m, k), dtype=torch.float32, device=dev)
         bias_ptr = None if bias is None else bias.data_ptr()
-        if c == 3:
+        if route == "tgn_knn":
             status = lib.tgn_knn(query.data_ptr(), points.data_ptr(), bias_ptr,
                                  b, m, n, k, idx.data_ptr(), d2.data_ptr(),
                                  stream_of(dev))
-        else:
+        elif route == "tgn_knn_c":
             status = lib.tgn_knn_c(query.data_ptr(), points.data_ptr(), bias_ptr,
                                    b, m, n, c, k, idx.data_ptr(), d2.data_ptr(),
                                    stream_of(dev))
-        build.check(status, "tgn_knn" if c == 3 else "tgn_knn_c")
+        else:
+            # the list's second row, the merge's other half
+            scratch_idx, scratch_d2 = torch.empty_like(idx), torch.empty_like(d2)
+            status = lib.tgn_knn_any(query.data_ptr(), points.data_ptr(), bias_ptr,
+                                     b, m, n, c, k, idx.data_ptr(), d2.data_ptr(),
+                                     scratch_idx.data_ptr(), scratch_d2.data_ptr(),
+                                     stream_of(dev))
+        build.check(status, route)
     count_launch(knn_select, c)
     return idx, d2
 

@@ -13,7 +13,7 @@ from .kernels.knn import knn_select, smallest_k
 
 _BIG = 1e10
 
-__all__ = ["knn_points", "knn_self", "smallest_k"]
+__all__ = ["knn", "knn_points", "knn_self", "smallest_k"]
 
 
 def knn_points(query: torch.Tensor, points: torch.Tensor, k: int,
@@ -102,3 +102,10 @@ def knn_self(points: torch.Tensor, k: int, p_mask: torch.Tensor | None = None):
     distances (counterpart of the JAX package's flat ``knn_self``)."""
     return knn_points(points, points, k, p_mask, p_mask, include_self=True,
                       need_dist=False)
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int,
+        q_mask: torch.Tensor | None = None,
+        p_mask: torch.Tensor | None = None, **kw):
+    """Alias of :func:`knn_points` (the JAX package's name)."""
+    return knn_points(query, points, k, q_mask, p_mask, **kw)

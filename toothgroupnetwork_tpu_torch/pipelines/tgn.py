@@ -10,15 +10,23 @@ non-TPU route):
      centroids,
   4. fps model stage 2 over 16 crop slots -> per-point FG/BG votes,
   5. host: refined instancing from the vote mask,
-  6. host: boundary-purity resampling (KD-tree purity, FPS fill through K1),
+  6. boundary-purity resampling: the 40-NN purity and the FPS fill
+     (postprocess/boundary.py),
   7. bdl model stage 1 + 2 on the boundary cloud, host KMeans instancing,
   8. host: arch disambiguation (9 -> 16 classes) + boundary-cluster fusion,
-  9. host 1-NN transfer to every original vertex + FDI remap.
+  9. 1-NN transfer to every original vertex + FDI remap.
 
 The model forwards run on ``device``; the fps model computes in
 ``model_parameter["dtype"]`` (float32 by default, or bfloat16, the JAX
 package's serving dtype), the bdl model in float32, and logits, offsets and
-votes reach the host in float32. Everything between them is host numpy.
+votes reach the host in float32. Everything between them is host numpy,
+except the boundary stage on a CUDA device, which takes the device route as
+the JAX package takes its own on its accelerator: the purity runs through
+K2 and the fill through one masked K1 launch (step 6), and the
+boundary-half 1-NN (K2, k = 4, re-scored) and the final transfer run on the
+device too, which sends back two label planes (step 9). On the CPU the
+stage keeps the KD-trees of the JAX package's CPU route; the two routes
+agree up to distance near-ties (postprocess/boundary.py).
 
 ``run_many`` serves several scans at once: each scan in flight runs on a
 thread of its own and, on a CUDA device, on a CUDA stream of its own, and
@@ -47,11 +55,12 @@ from ..models.tasks import (TGNET_BDL_ARCH, build_tgnet_bdl, build_tgnet_fps,
 from ..models.tgnet import make_crops
 from ..ops import farthest_point_sample
 from ..ops.cells import spatial_sort_perm
-from ..postprocess.boundary import boundary_sampled_feats
+from ..ops.kernels.knn import knn_route
+from ..postprocess.boundary import boundary_sampled_feats, nearest_rescored
 from ..postprocess.clustering import clustering_points, get_clustering_labels
 from ..postprocess.fusion import disambiguate_arch_labels, merge_boundary_clusters
 from ..utils.weights import load_npz
-from .base import class_logits_to_fdi
+from .base import class_logits_to_fdi, fps_sample
 
 K_MAX = 16  # crop slots; challenge jaws have <= 16 teeth
 
@@ -96,6 +105,49 @@ def _moved_f16(feats_xyz: torch.Tensor, offset: torch.Tensor) -> np.ndarray:
     return (feats_xyz + offset).to(torch.float16).float().cpu().numpy()
 
 
+def prep_mesh_tgn(stl_path: str, n_sample: int = N_SAMPLE, *, device):
+    """``(org_feats, bdl_feats, sampled_feats)`` float32: the deduplicated
+    vertices' features (the final transfer's targets), the boundary
+    resampling's source (subdivided when the mesh is small) and its FPS
+    sample of ``n_sample`` rows through K1 on ``device`` (counterpart of
+    toothgroupnetwork_tpu/pipelines/tgn.py:prep_mesh_tgn)."""
+    org_feats, bdl_feats = prep_scan_host_tgn(stl_path, n_sample)
+    return org_feats, bdl_feats, fps_sample(bdl_feats, n_sample, device=device)
+
+
+# K2's candidates for the boundary-half 1-NN: its selection ranks by the
+# distance expansion, whose float32 rounding may misorder points nearer
+# than that rounding; the exact re-score of the leading few (as the JAX
+# function re-scores its top 4) returns the exact nearest
+NN1_CANDIDATES = 4
+
+
+def boundary_nn1(query: torch.Tensor, bdl_xyz: torch.Tensor):
+    """The boundary half of the final 1-NN (counterpart of
+    toothgroupnetwork_tpu/pipelines/tgn.py:_bdl_nn1_fn): each query ``[N,
+    3]``'s nearest boundary point ``[P, 3]``: K2 selects
+    :data:`NN1_CANDIDATES`, the nearest of them by the squared distance
+    re-scored by direct subtraction. Returns (idx int64 ``[N]``, d2 f32
+    ``[N]``) on the device."""
+    idx, d2 = nearest_rescored(query.contiguous(), bdl_xyz.contiguous(),
+                               min(NN1_CANDIDATES, bdl_xyz.shape[0]))
+    return idx[:, 0], d2
+
+
+def final_transfer(nn1: torch.Tensor, nn1_d2: torch.Tensor, nn_b, d_b2,
+                   labels: np.ndarray, n_sampled: int):
+    """Device final transfer (counterpart of
+    toothgroupnetwork_tpu/pipelines/tgn.py:_final_transfer_fns): each
+    vertex takes its nearest sampled point ``nn1`` or, where strictly
+    nearer, its nearest boundary point ``n_sampled + nn_b`` (ties go to the
+    sampled side), and gathers the rows of ``labels`` ``[L, n_sampled +
+    n_bd]`` there; ``nn_b``/``d_b2`` None when there is no boundary point.
+    Returns the ``[L, N]`` label planes on the host."""
+    nn = nn1 if nn_b is None else torch.where(d_b2 < nn1_d2, n_sampled + nn_b, nn1)
+    planes = torch.from_numpy(np.ascontiguousarray(labels, np.int32)).to(nn.device)
+    return planes[:, nn].cpu().numpy().astype(np.int64)
+
+
 class TgnInferencePipeline:
     """``inject_modules=(fps_module, bdl_module)`` replaces the two built
     models, and no checkpoint is read: any two objects with the stage
@@ -113,6 +165,8 @@ class TgnInferencePipeline:
         use_full_fp32()
         self.device = torch.device(device)
         cfg = copy.deepcopy(config) if config else tgnet_fps_config()
+        # the boundary stage's route follows the device (module docstring)
+        self._boundary_on_device = self.device.type == "cuda"
         # super-row candidate attention (ops/cells.py), off by default as in
         # the JAX package; it needs spatially sorted clouds, so the flag also
         # turns on the sorts of the sample and of the boundary cloud
@@ -152,6 +206,45 @@ class TgnInferencePipeline:
         now = time.perf_counter()
         timings[name] += now - t0
         return now
+
+    def variants(self) -> dict:
+        """The route each part of a scan takes on this pipeline, at the
+        flagship shapes (counterpart of the JAX pipeline's ``variants()``,
+        which reports its TPU switches; the port has none of them): the
+        attention entry of each model's first stage over the whole cloud
+        and over the crops (``K3``, ``K6`` on the cell path, ``unfused`` in
+        train mode), the boundary route and, on the device route, the K2
+        route of the purity 40-NN and of the boundary 1-NN, the dtypes.
+        On the CPU every kernel takes its plain version."""
+        n_all = self.boundary_info["num_of_all_points"]
+
+        def attention(module, half, b, n):
+            backbone = getattr(module, half, None)
+            entry = getattr(backbone, "attention_entry", None)
+            return "injected" if entry is None else entry(b, n)
+
+        def knn(k):
+            if not self._boundary_on_device:
+                return "host KD-tree"
+            return knn_route(3, k) if self.device.type == "cuda" else "plain"
+
+        def dtype(module):
+            return str(getattr(getattr(module, "first", None), "dtype", "injected"))
+
+        return {
+            "device": str(self.device),
+            "attn_fps_stage0": attention(self.fps_module, "first", 1, self.n_sample),
+            "attn_fps_crops": attention(self.fps_module, "second", K_MAX,
+                                        self.crop_size),
+            "attn_bdl_stage0": attention(self.bdl_module, "first", 1, n_all),
+            "attn_bdl_crops": attention(self.bdl_module, "second", K_MAX,
+                                        self.crop_size),
+            "boundary_route": "device" if self._boundary_on_device else "host",
+            "purity_knn": knn(min(40, self.n_sample)),
+            "bdl_nn1_knn": knn(NN1_CANDIDATES),
+            "fps_dtype": dtype(self.fps_module),
+            "bdl_dtype": dtype(self.bdl_module),
+        }
 
     def _stage2_votes(self, module, feats: torch.Tensor, centroids) -> np.ndarray:
         """Crops around ``centroids`` + stage 2 + vote aggregation -> the
@@ -283,13 +376,20 @@ class TgnInferencePipeline:
         t0 = self._t(timings, "host_instancing", t0)
 
         # ---------------- boundary stage (bdl model) ----------------
-        bdl_sampled, pseudo_labels, n_bd, nn1_idx, nn1_d2 = boundary_sampled_feats(
-            ins_labels, bdl_feats, sampled,
-            bdl_ratio=self.boundary_info["bdl_ratio"],
-            num_bdl_points=self.boundary_info["num_of_bdl_points"],
-            num_all_points=self.boundary_info["num_of_all_points"],
-            spatial_sort=self._spatial_sort, device=dev)
+        on_device = self._boundary_on_device
+        bdl_sampled, pseudo_labels, n_bd, nn1_idx, nn1_d2, rows = \
+            boundary_sampled_feats(
+                ins_labels, bdl_feats, sampled,
+                bdl_ratio=self.boundary_info["bdl_ratio"],
+                num_bdl_points=self.boundary_info["num_of_bdl_points"],
+                num_all_points=self.boundary_info["num_of_all_points"],
+                spatial_sort=self._spatial_sort,
+                org_dev=src if on_device else None, sampled_dev=feats_dev[0],
+                device=dev)
         pseudo_in = pseudo_labels.astype(np.int64) - 1  # -1 = bg
+        # the boundary cloud gathered from the resident source cloud: one
+        # index upload instead of the rows
+        rows_dev = torch.from_numpy(rows).to(dev)
         t0 = self._t(timings, "host_boundary_resample", t0)
 
         # the bdl crop centroids come from the pseudo labels, known before
@@ -297,7 +397,7 @@ class TgnInferencePipeline:
         xyz_b = bdl_sampled[:, :3]
         bdl_cents = [xyz_b[pseudo_in == i].mean(axis=0)
                      for i in np.unique(pseudo_in) if i != -1]
-        feats_b = torch.from_numpy(bdl_sampled[None]).to(dev)
+        feats_b = src[rows_dev][None]
         out_b = self.bdl_module.stage1(feats_b)
         moved_b = _moved_f16(feats_b[0, :, :3], out_b["offset_1"][0])
         whole_mask_b = self._stage2_votes(self.bdl_module, feats_b, bdl_cents)
@@ -326,13 +426,26 @@ class TgnInferencePipeline:
         # ---------------- 1-NN transfer + FDI remap ----------------
         # nearest of the sampled cloud (the purity query's byproduct) or of
         # the boundary cloud, ties to the sampled side
-        nn = nn1_idx[:n_vertices].astype(np.int64)
-        if n_bd:
-            d_b, nn_b = cKDTree(bdl_xyz).query(org_feats[:, :3], k=1, workers=-1)
-            use_b = (d_b ** 2) < nn1_d2[:n_vertices]
-            nn = np.where(use_b, len(first_xyz) + nn_b, nn)
-        result_ins = final_ins[nn.reshape(-1)]
-        result_sem = class_logits_to_fdi(final_sem[nn.reshape(-1)])
+        if on_device:
+            # the original vertices are the first rows of the resident
+            # cloud, and so are the boundary rows' sources
+            nn_b = d_b2 = None
+            if n_bd:
+                nn_b, d_b2 = boundary_nn1(src[:n_vertices, :3],
+                                          src[rows_dev[:n_bd], :3])
+            result_ins, result_sem = final_transfer(
+                nn1_idx[:n_vertices], nn1_d2[:n_vertices], nn_b, d_b2,
+                np.stack([final_ins, final_sem]), len(first_xyz))
+        else:
+            nn = nn1_idx[:n_vertices].astype(np.int64)
+            if n_bd:
+                d_b, nn_b = cKDTree(bdl_xyz).query(org_feats[:, :3], k=1,
+                                                   workers=-1)
+                use_b = (d_b ** 2) < nn1_d2[:n_vertices]
+                nn = np.where(use_b, len(first_xyz) + nn_b, nn)
+            result_ins = final_ins[nn]
+            result_sem = final_sem[nn]
+        result_sem = class_logits_to_fdi(result_sem)
         self._t(timings, "host_1nn_transfer", t0)
         self.timings = timings
         return {"sem": result_sem.reshape(-1), "ins": result_ins.reshape(-1)}
