@@ -24,7 +24,12 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      floor: the per-step exchange alone over 24000 steps on 16 CTAs, K1's
      and the cluster-barrier design's; K2 also on the first cloud spatially
      sorted; K2's general-C route at DGCNN's self-kNN shapes, C = 6 and
-     64, identical to its plain version; K1 at the PointNet++ SA shapes;
+     64, identical to its plain version, beside the two-call yardstick
+     ``torch.topk(torch.cdist(x, x), k, largest=False)`` (timed only), with
+     the register-tiled design's geometry (queries a block, candidates a
+     tile, a thread's register tile, registers, local memory, shared memory,
+     resident blocks an SM, the compiler's spills) and the candidate splits
+     of each launch; K1 at the PointNet++ SA shapes;
      the cell-attention kernels K4/K5/K6 on a spatially sorted
      24000-point sheet; K7 and K8 at the crop and full-cloud shapes; the
      bfloat16 variants of K3, K4 and K6 against their bfloat16 twins);
@@ -329,6 +334,74 @@ class KernelRecord:
             library_ms=library_ms, **extra)
 
 
+def knn_ops(c: int, b: int, m: int, n: int, self_query: bool) -> float:
+    """The operations K2's function needs: each (query, point) pair C mul
+    and C - 1 add for the cross term, the doubling, a sub and an add of
+    |p|^2, and 1 compare. A self-query's cross term is symmetric
+    (cross(i, j) == cross(j, i) bit for bit: the same products, added in
+    the same channel order), so it needs only n (n + 1) / 2 of its pairs."""
+    pairs = n * (n + 1) / 2 if self_query else m * n
+    return float(b) * ((2.0 * c - 1.0) * pairs + 4.0 * m * n)
+
+
+def knn_splits(route: str, b: int, m: int, n: int, k: int) -> int:
+    """The candidate splits K2's feature-space launch picks at this shape."""
+    from toothgroupnetwork_tpu_torch.ops.kernels import build
+
+    import ctypes
+
+    return build.library().tgn_knn_scratch(int(route == "tgn_knn_any"), b, m, n, k,
+                                           ctypes.byref(ctypes.c_size_t(0)))
+
+
+def ptxas_report(log_text: str, needle: str) -> dict:
+    """Registers, stack frame and spill bytes of the first kernel whose
+    mangled name holds ``needle``, from the compiler's ``-Xptxas -v``
+    report in the build log."""
+    import re
+
+    out = {}
+    props = re.search(r"Function properties for \S*" + re.escape(needle)
+                      + r"\S*\s+(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", log_text)
+    if props:
+        out.update(stack_bytes=int(props[1]), spill_store_bytes=int(props[2]),
+                   spill_load_bytes=int(props[3]))
+    used = re.search(r"Compiling entry function '\S*" + re.escape(needle)
+                     + r"[^']*'.*?Used (\d+) registers", log_text, re.S)
+    if used:
+        out["ptxas_registers"] = int(used[1])
+    return out
+
+
+def knn_tiled_geometry() -> dict:
+    """The register-tiled design of K2's feature-space routes
+    (``tgn_knn_geometry``: queries a block, candidates a tile, a thread's
+    register tile, channels a chunk, threads, registers a thread, local
+    memory, shared memory a block, resident blocks an SM) with the
+    compiler's registers and spills for each route's kernel."""
+    import ctypes
+
+    from toothgroupnetwork_tpu_torch.ops.kernels import build
+
+    lib = build.library()
+    log_path = Path(build.build_info.get("log", ""))
+    log_text = log_path.read_text() if log_path.is_file() else ""
+    out = {}
+    for flag, route in ((0, "tgn_knn_c"), (1, "tgn_knn_any")):
+        vals = (ctypes.c_int * 10)()
+        build.check(lib.tgn_knn_geometry(flag, vals), "tgn_knn_geometry")
+        q, p, r, s, ch, threads, regs, local, smem, per_sm = list(vals)
+        out[route] = {"queries_a_block": q, "candidates_a_tile": p,
+                      "thread_tile": f"{r}x{s}", "channels_a_chunk": ch,
+                      "threads_a_block": threads, "registers": regs,
+                      "local_bytes": local, "shared_bytes": smem,
+                      "blocks_per_sm": per_sm,
+                      **ptxas_report(log_text, f"knn_tile_kernelILb{flag}E")}
+    log("knn_tiled_geometry", **out)
+    return out
+
+
 def bf16_ulps(got, ref, atol: float = 1e-4):
     """(ok, share of elements more than one bf16 ulp apart): ok when every
     |got - ref| <= one bf16 ulp (8 significant bits) at max(|got|, |ref|)
@@ -398,8 +471,8 @@ def phase_kernels(dev, gen):
                     moved=nbytes(xyz, got) + (0 if valid is None else nbytes(valid)),
                     cluster=fps.cluster_size(n), us_per_step=ms * 1e3 / m)
 
-    # K2: identical except rows with a near-tie at the k-th place. Each
-    # (query, point) pair: 3 sub, 3 mul, 2 add and 1 compare
+    # K2: identical except rows with a near-tie at the k-th place; the
+    # operations as knn_ops counts them at C = 3
     from toothgroupnetwork_tpu_torch.ops.cells import spatial_sort_perm
 
     clouds = {}
@@ -425,15 +498,17 @@ def phase_kernels(dev, gen):
         rec_knn.add(f"[{b},{m}]x[{b},{n}] k={k}" + (" sorted" if sort else ""), err,
                     cuda_ms(lambda: knn.knn_select(qry, pts, k), 3),
                     cuda_ms(lambda: knn.knn_select_reference(qry, pts, k), 1),
-                    ops=9.0 * b * m * n,
+                    ops=knn_ops(3, b, m, n, self_q),
                     moved=nbytes(pts, gi, gd) + (0 if self_q else nbytes(qry)),
                     rows_differ=int(row_bad.sum()),
                     near_tie_rows=int(near_tie.sum()))
 
     # K2's general-C route: identical indices and d2 (the kernel sums the
-    # channels in the plain version's order). Each (query, point) pair:
-    # C mul and C - 1 add for the cross term, the doubling, a sub and an
-    # add of |p|^2, 1 compare: 2C + 3
+    # channels in the plain version's order); the operations as knn_ops
+    # counts them for a self-query. Beside it, the two-call yardstick
+    # topk(cdist) (timed only: its matmul expansion rounds otherwise; the
+    # port never calls it), and the candidate splits the launch picked
+    rec_knn.entry["tiled_geometry"] = knn_tiled_geometry()
     for b, n, k, c in KNN_C_SHAPES:
         x = cloud(b, n, c)
         gi, gd = knn.knn_select(x, x, k)
@@ -445,9 +520,12 @@ def phase_kernels(dev, gen):
         rec_knn.add(f"[{b},{n}] C={c} k={k} self", 0.0,
                     cuda_ms(lambda: knn.knn_select(x, x, k), 3),
                     cuda_ms(lambda: knn.knn_select_reference(x, x, k), 1),
-                    ops=(2.0 * c + 3.0) * b * n * n, moved=nbytes(x, gi, gd),
+                    ops=knn_ops(c, b, n, n, True), moved=nbytes(x, gi, gd),
+                    library_ms=cuda_ms(lambda: torch.topk(torch.cdist(x, x), k,
+                                                          largest=False), 3),
+                    library_call="torch.topk(torch.cdist(x, x), k, largest=False)",
                     device_ms=graph_ms(lambda: knn.knn_select(x, x, k), 3),
-                    identical=True)
+                    splits=knn_splits(knn.knn_route(c, k), b, n, n, k), identical=True)
 
     # K3: max |kernel - plain| <= 1e-4 in float32 (other summation order);
     # in bfloat16 (bf16 rows, q and out) within one bf16 ulp of the output.
@@ -1173,8 +1251,8 @@ def phase_device_boundary(dev, pipes: dict, configs: dict, scans,
                                   nn1s[0][0] if n_bd else None)
 
     # K2's any-size kernel (k > 64 or C > 256): equal to its plain version on
-    # the same inputs on the card, one launch a call, timed beside it; each
-    # (query, point) pair 2C + 3 operations, as the general-C route's
+    # the same inputs on the card, one launch a call, timed beside it; the
+    # operations as knn_ops counts them (M != N: every pair)
     rec_knn = records[1]
     launches = knn.knn_select.launches
     gen = np.random.default_rng(7)
@@ -1191,8 +1269,10 @@ def phase_device_boundary(dev, pipes: dict, configs: dict, scans,
         rec_knn.add(f"any-size [{b},{m}]x[{b},{n}] C={c} k={k}", 0.0,
                     cuda_ms(lambda: knn.knn_select(q, pts, k), 3),
                     cuda_ms(lambda: knn.knn_select_reference(q, pts, k), 1),
-                    ops=(2.0 * c + 3.0) * b * m * n, moved=nbytes(q, pts, gi, gd),
-                    route=knn.knn_route(c, k), identical=True)
+                    ops=knn_ops(c, b, m, n, False), moved=nbytes(q, pts, gi, gd),
+                    device_ms=graph_ms(lambda: knn.knn_select(q, pts, k), 3),
+                    route=knn.knn_route(c, k),
+                    splits=knn_splits(knn.knn_route(c, k), b, m, n, k), identical=True)
         launches = knn.knn_select.launches
     log("device_boundary", seconds=time.perf_counter() - t_phase,
         launches_per_scan=per_scan)
@@ -1224,7 +1304,7 @@ def time_boundary_kernels(dev, records, org_dev, smp_dev, bd_mask, need,
                                  "version")
         rec_knn.add(f"{what} [1,{qry.shape[1]}]x[1,{pts.shape[1]}] k={k}", 0.0,
                     cuda_ms(lambda: knn.knn_select(qry, pts, k), 3), plain_ms,
-                    ops=9.0 * qry.shape[1] * pts.shape[1],
+                    ops=knn_ops(3, 1, qry.shape[1], pts.shape[1], False),
                     moved=nbytes(qry, pts, gi, gd),
                     device_ms=graph_ms(lambda: knn.knn_select(qry, pts, k), 3),
                     device_boundary=True, identical=True)

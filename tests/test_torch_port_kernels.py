@@ -196,13 +196,46 @@ class TestKernelsOnCard:
         assert torch.equal(gi, ri) and torch.equal(gd, rd)
         assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
 
+    @staticmethod
+    def _hold_to_twin(cases, k, twin_on_cpu=False):
+        """Each (query, points, bias) through ``knn_select``, one launch a
+        call, indices and d2 ``torch.equal`` to the twin's (on the card, or
+        on the CPU). Returns the last call's output."""
+        for qry, p, b in cases:
+            launches = knn.knn_select.launches
+            gi, gd = knn.knn_select(qry, p, k, b)
+            assert knn.knn_select.launches == launches + 1
+            if twin_on_cpu:
+                qry, p, b = qry.cpu(), p.cpu(), None if b is None else b.cpu()
+            ri, rd = knn.knn_select_reference(qry, p, k, b)
+            gi, gd = gi.to(ri.device), gd.to(rd.device)
+            assert torch.equal(gi, ri) and torch.equal(gd, rd), (
+                tuple(qry.shape), tuple(p.shape), b is not None,
+                int(((gi != ri) | (gd != rd)).any(dim=-1).sum()))
+        return gi, gd
+
+    @staticmethod
+    def _tail_case(gen, m, c, device):
+        """M queries over 10 points, every third masked: the k > n tail
+        beside masked points."""
+        few = _cloud(gen, 2, 10, c, device=device)
+        few_bias = torch.zeros((2, 10), device=device)
+        few_bias[:, ::3] = 1e10
+        return _cloud(gen, 2, m, c, device=device), few, few_bias
+
     @pytest.mark.parametrize("k", [1, 20, 33, 64])
-    @pytest.mark.parametrize("c", [6, 35, 64])
+    @pytest.mark.parametrize("c", [1, 2, 5, 6, 17, 33, 35, 64, 100, 256])
     def test_knn_general_c(self, cuda_device, gen, c, k):
-        """K2's general-C route (``tgn_knn_c``; DGCNN's feature space) equal
-        to its twin, indices and d2 bit for bit: a masked self-query over
-        several candidate tiles, M != N, exact duplicate rows, and the
-        k > n tail beside masked points. Each launch counts under its C."""
+        """K2's general-C route (``tgn_knn_c``; DGCNN's feature space, on
+        the register-tiled stage) equal to its twin, indices and d2 bit for
+        bit, one launch a call: a masked self-query over several candidate
+        tiles, M != N, exact duplicate rows spanning tiles and splits, every
+        M != N of 1, 31, 129 and 2500 (B = 2: ragged query tiles, candidate
+        tiles, channel chunks and splits), a fully masked cloud (every d2
+        ties at 1e10: the lower index wins), the k > n tail beside masked
+        points, and at C = 64, k = 20 DGCNN's EdgeConv self-query at full
+        size ([1,24000]). Each launch counts under its C."""
+        assert knn.knn_route(c, k) == "tgn_knn_c"
         before = knn.knn_select.launches_by_shape.get(c, 0)
         pts = _cloud(gen, 2, 2500, c, device=cuda_device)
         bias = torch.where(torch.from_numpy(gen.random((2, 2500)) > 0.3),
@@ -210,49 +243,44 @@ class TestKernelsOnCard:
         uniq = _cloud(gen, 1, 200, c, device=cuda_device)
         dup = uniq[:, torch.from_numpy(gen.integers(0, 200, 1500)).to(
             cuda_device)].contiguous()
-        few = _cloud(gen, 2, 10, c, device=cuda_device)
-        few_bias = torch.zeros((2, 10), device=cuda_device)
-        few_bias[:, ::3] = 1e10
-        cases = ((pts, pts, bias), (_cloud(gen, 2, 300, c, device=cuda_device),
-                                    pts, None),
-                 (dup, dup, None), (_cloud(gen, 2, 50, c, device=cuda_device),
-                                    few, few_bias))
-        for qry, p, b in cases:
-            gi, gd = knn.knn_select(qry, p, k, b)
-            ri, rd = knn.knn_select_reference(qry, p, k, b)
-            torch.cuda.synchronize()
-            assert torch.equal(gi, ri) and torch.equal(gd, rd)
+        sizes = (1, 31, 129, 2500)
+        cases = [(pts, pts, bias), (_cloud(gen, 2, 300, c, device=cuda_device), pts,
+                                    None),
+                 (dup, dup, None), (pts, pts, torch.full_like(bias, 1e10))]
+        cases += [(_cloud(gen, 2, m, c, device=cuda_device),
+                   _cloud(gen, 2, n, c, device=cuda_device), None)
+                  for m in sizes for n in sizes if m != n]
+        if (c, k) == (64, 20):
+            x = _cloud(gen, 1, 24000, c, device=cuda_device)
+            cases.append((x, x, None))
+        cases.append(self._tail_case(gen, 129, c, cuda_device))
+        gi, gd = self._hold_to_twin(cases, k)
         if k > 10:
             assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
         assert knn.knn_select.launches_by_shape[c] == before + len(cases)
 
     @pytest.mark.parametrize("c,k", [(3, 65), (300, 20), (300, 65), (64, 100),
-                                     (3, 300)])
+                                     (3, 300), (17, 100)])
     def test_knn_size_route(self, cuda_device, gen, c, k):
         """Beyond the warp kernels' limits (k > 64 or C > 256) ``knn_select``
         launches ``tgn_knn_any`` on the card, equal to the plain version on
         the CPU, indices and d2 bit for bit: a masked self-query, M != N,
-        duplicated points (ties to the lower index) and the k > n tail
-        beside masked points; each call one launch.
+        M over several 64-query tiles plus a partial one (3 x 64 + 17),
+        duplicated points (ties to the lower index), a fully masked cloud
+        and the k > n tail beside masked points; each call one launch.
         Through ``knn_points`` too, as a DGCNN with k > 64 calls it."""
         assert knn.knn_route(c, k) == "tgn_knn_any"
         launches = knn.knn_select.launches
         pts = _cloud(gen, 2, 3000, c, device=cuda_device)
         bias = torch.where(torch.from_numpy(gen.random((2, 3000)) > 0.3),
                            0.0, 1e10).to(torch.float32).to(cuda_device)
-        few = _cloud(gen, 2, 10, c, device=cuda_device)
-        few_bias = torch.zeros((2, 10), device=cuda_device)
-        few_bias[:, ::3] = 1e10
         dup = pts[:, :1500].repeat(1, 2, 1).contiguous()   # ties: lower index
         cases = ((pts, pts, bias), (_cloud(gen, 2, 700, c, device=cuda_device),
                                     pts, None),
-                 (dup, dup, None),
-                 (_cloud(gen, 2, 50, c, device=cuda_device), few, few_bias))
-        for qry, p, b in cases:
-            gi, gd = knn.knn_select(qry, p, k, b)
-            ri, rd = knn.knn_select_reference(qry.cpu(), p.cpu(), k,
-                                              None if b is None else b.cpu())
-            assert torch.equal(gi.cpu(), ri) and torch.equal(gd.cpu(), rd)
+                 (_cloud(gen, 2, 3 * 64 + 17, c, device=cuda_device), pts, None),
+                 (dup, dup, None), (pts, pts, torch.full_like(bias, 1e10)),
+                 self._tail_case(gen, 50, c, cuda_device))
+        gi, gd = self._hold_to_twin(cases, k, twin_on_cpu=True)
         assert (gi[..., 10:] == 0).all() and (gd[..., 10:] == 1e10).all()
         idx, _ = knn_self(pts, k, bias == 0)
         ref, _ = knn_self(pts.cpu(), k, (bias == 0).cpu())

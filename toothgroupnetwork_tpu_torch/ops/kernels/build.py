@@ -32,8 +32,10 @@ _SIGNATURES = {
     "tgn_fps": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
     "tgn_fps_chain": ([_I, _I, _I, _I, _P, _P], _I),
     "tgn_knn": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
-    "tgn_knn_c": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
-    "tgn_knn_any": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+    "tgn_knn_c": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "tgn_knn_any": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "tgn_knn_scratch": ([_I, _I, _I, _I, _I, ctypes.POINTER(_Z)], _I),
+    "tgn_knn_geometry": ([_I, _IP], _I),
     "tgn_project_kv": ([_P, _P, _P, _I, _I, _I, _P, _I, _P], _I),
     "tgn_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P], _I),
     "tgn_attention_gathered": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,

@@ -4,31 +4,45 @@ Replaces toothgroupnetwork_tpu/ops/pallas/knn_kernel.py:knn_pallas_select
 (``_knn_kernel``). The contract is that of ``knn_points`` on CPU in the JAX
 package: sorted ascending by (d2, index), masked points biased by 1e10, and
 for k > n a tail of index 0 at d2 = 1e10. What bounds it on the H100 is the
-M x N distance stream and the selection's latency; the kernel runs one warp
-per query over shared-memory tiles of candidates, a ballot against the k-th
-(d2, index) key filtering them into a warp-resident sorted list, and seeds
-each query's list from the candidates around its own index, so its time no
-longer follows the cloud's order (csrc/knn.cu gives the design). The
-self-first dedup and the exact re-score stay in plain torch (ops/knn.py), as
-they stay in XLA around the Pallas kernel.
+M x N distance stream and the selection's latency. At C = 3 the kernel runs
+one warp per query over shared-memory tiles of candidates, a ballot against
+the k-th (d2, index) key filtering them into a warp-resident sorted list,
+and seeds each query's list from the candidates around its own index, so
+its time no longer follows the cloud's order (csrc/knn.cu gives the
+design). The self-first dedup and the exact re-score stay in plain torch
+(ops/knn.py), as they stay in XLA around the Pallas kernel.
 
 Any channel count C is taken, as ``knn_pallas_select`` takes one: C = 3 (xyz)
 runs ``tgn_knn`` (float4 candidate tiles, the seed window), any other C up
-to :data:`MAX_C` ``tgn_knn_c`` (query rows and transposed candidate tiles
-in shared memory, the distance summed channel by channel in the plain
-twin's order), as DGCNN selects in feature space at C = 6 and 64.
+to :data:`MAX_C` ``tgn_knn_c``, as DGCNN selects in feature space at C = 6
+and 64; beyond the warp list's k (:data:`MAX_K`) or C > :data:`MAX_C`,
+``tgn_knn_any``. The route follows from the shape alone (:func:`knn_route`);
+no preset reaches the third (DGCNN's k = 20, ``nsample`` <= 36, the CBL
+loss's k <= 64).
 
-Beyond the warp kernels' limits (k > :data:`MAX_K`, whose list no longer
-fits a warp's registers, or C > :data:`MAX_C`, whose query rows no longer fit
-its shared memory) ``tgn_knn_any`` takes the call: one block a query, the
-channels read through shared memory in chunks and the sorted list of k keys
-in global memory, merged tile by tile (csrc/knn.cu), as
-``knn_pallas_select`` selects any k over any C inside its own body. The
-route follows from the shape alone (:func:`knn_route`); no preset reaches
-the third (DGCNN's k = 20, ``nsample`` <= 36, the CBL loss's k <= 64).
+The two feature-space routes share one register-tiled distance stage
+(csrc/knn.cu): a block of 64 queries walks its candidates in tiles of 128,
+each thread summing a 4 x 8 tile of pairs channel by channel in the plain
+twin's order, so the FP32 pipe sets the pace; products and sums are issued
+apart (no FMA), so the exact form runs at half the card's FP32 operation
+rate. The stage computes every pair, though a self-query's cross term is
+symmetric and needs only n (n + 1) / 2 of them: that caps DGCNN's
+self-kNN near a quarter of its bound (a tile computed once for both
+triangles would lift it to a half). |q|^2 and |p|^2 come from a pre-pass
+into scratch.
+``tgn_knn_c`` then selects with a warp list a row (two register banks, one
+when k <= 32), each split's first tile filled by a bitonic sort;
+``tgn_knn_any`` queues each row's keys below its bar and merges a full queue
+by rank into a sorted list of any k in global memory. Keys (d2, index) are
+unique, so neither the order of the candidates nor a bar that lags changes
+the k smallest; that is what lets the candidates be split across blocks,
+when the queries' tiles alone leave block slots idle, and the partial
+lists be merged by rank (one split writes the output directly).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -82,17 +96,9 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
             status = lib.tgn_knn(query.data_ptr(), points.data_ptr(), bias_ptr,
                                  b, m, n, k, idx.data_ptr(), d2.data_ptr(),
                                  stream_of(dev))
-        elif route == "tgn_knn_c":
-            status = lib.tgn_knn_c(query.data_ptr(), points.data_ptr(), bias_ptr,
-                                   b, m, n, c, k, idx.data_ptr(), d2.data_ptr(),
-                                   stream_of(dev))
         else:
-            # the list's second row, the merge's other half
-            scratch_idx, scratch_d2 = torch.empty_like(idx), torch.empty_like(d2)
-            status = lib.tgn_knn_any(query.data_ptr(), points.data_ptr(), bias_ptr,
-                                     b, m, n, c, k, idx.data_ptr(), d2.data_ptr(),
-                                     scratch_idx.data_ptr(), scratch_d2.data_ptr(),
-                                     stream_of(dev))
+            status = launch_feature_knn(lib, route, query, points, bias, k, idx, d2,
+                                        stream_of(dev))
         build.check(status, route)
     count_launch(knn_select, c)
     return idx, d2
@@ -100,6 +106,27 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int,
 
 knn_select.launches = 0
 knn_select.launches_by_shape = {}
+
+
+def launch_feature_knn(lib, route: str, query: torch.Tensor, points: torch.Tensor,
+                       bias: torch.Tensor | None, k: int, idx: torch.Tensor,
+                       d2: torch.Tensor, stream: int) -> int:
+    """Launch ``tgn_knn_c`` or ``tgn_knn_any`` of ``lib`` into ``idx``/``d2``
+    on ``stream``, with one scratch buffer of the bytes the library asks for
+    at this shape (``tgn_knn_scratch``; its layout stays in csrc/knn.cu).
+    Returns the C entry's status."""
+    b, m, c = query.shape
+    n = points.shape[1]
+    nbytes = ctypes.c_size_t(0)
+    splits = lib.tgn_knn_scratch(int(route == "tgn_knn_any"), b, m, n, k,
+                                 ctypes.byref(nbytes))
+    if splits < 1:
+        return -splits
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=query.device)
+    return getattr(lib, route)(
+        query.data_ptr(), points.data_ptr(),
+        None if bias is None else bias.data_ptr(), b, m, n, c, k, scratch.data_ptr(),
+        idx.data_ptr(), d2.data_ptr(), stream)
 
 
 def smallest_k(d2: torch.Tensor, k: int):
