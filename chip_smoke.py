@@ -112,7 +112,23 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      bit-identical, the loss falling, the step's seconds with and without
      deterministic algorithms, its peak memory and one profiled step; then
      ``cli.train --model_name dgcnn`` and ``tsegnet`` for one epoch, the
-     exported weights served through ``cli.infer --model_name``.
+     exported weights served through ``cli.infer --model_name``;
+ 14. data-parallel training (``parallel/``, ``train_step(mesh=)``):
+     tgnet_fps at full width, global batch 2, on two spawned ranks sharing
+     the card over gloo (``parallel.RankPool``), three steps against the
+     one-process batch-2 step on the card and against the control, one
+     process with its matrix products run one cloud at a time
+     (tolerances derived beside ``DP_LOSS_RTOL``), the ranks
+     bit-identical, each rank's K1 and K2
+     launches a step equal to one cloud's one-process step, seconds a step
+     each way; one step on a world-size-1 NCCL group;
+ 15. the point-sharded forward: the fps model's full-width stage-1
+     backbone over a 24576-point arch on the two ranks
+     (``parallel.sharded_backbone_forward``: sharded FPS, K2 ring kNN, ring
+     gathers, K6) against the dense port model's eval forward on the card:
+     FPS indices equal, kNN lists by the near-tie rule, outputs within 1e-4
+     of the largest, K2 and K6 launches a rank, seconds and the sharded
+     FPS's share.
 
 Every log line carries the card's nvidia-smi name and power limit. Then one
 JSON line of the kernels, the nvidia-smi line again, and last the line
@@ -121,6 +137,7 @@ JSON line of the kernels, the nvidia-smi line again, and last the line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -2647,6 +2664,466 @@ def step_phases(model, opt, task, cfg, batch) -> dict:
     return {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
 
 
+# the parallel phases (14, 15) on two ranks sharing the one card over gloo
+# (parallel/distributed.py's backend rule), with one more rank alone on it
+# over NCCL
+DP_RANKS, DP_STEPS = 2, 3
+# phase 14's tolerances, from the split BatchNorm sums: the data-parallel
+# step sums each rank's rows and then the two partial sums, where one
+# process sums the global batch at once. Two orders of a float32 sum of n
+# terms differ by at most about log2(n) eps relative under torch's
+# cascaded reductions: the widest BatchNorm of a step reduces
+# 2 x 24000 x 36 = 1.7e6 neighbourhood rows, log2 = 21, so 1.3e-6 a
+# statistic, and the 264 train-mode BatchNorms of the two stages stack at
+# most to 3.4e-4 in a loss: ``DP_LOSS_RTOL``. The ranks also run every
+# matrix product at one cloud's shapes, and cuBLAS rounds the ground-truth
+# centroids' batched product (models/tgnet.py:43) otherwise at batch 1
+# than at batch 2. The crops cut around them keep their points but sort
+# near-tied distances into another order (23 of the 32 crops), and the
+# crop stage's FPS and kNN break ties by that order, so its deep
+# BatchNorms (12 points a crop) see other inputs. The control measures
+# that alone: one process with its products run one cloud at a time
+# (``products_per_cloud``) cuts the ranks' crops in the ranks' order and
+# lands 2.97e-4 absolute from one process in a running statistic (first
+# past the CPU tests' tolerance: ``second.enc4_down.bn.mean``), the ranks
+# 2.97e-4, one process given the clouds in the other order 1.2e-6, and
+# the ``Dense`` products alone at one cloud's shapes 2.4e-7 (measured on
+# an H100, NVIDIA H100 80GB HBM3, 700.00 W). So the ranks
+# are held to one process within twice the control's reading,
+# ``DP_STAT_ATOL``, and to the control within the CPU tests' tolerance
+# (``STAT_RTOL``/``STAT_ATOL``; the ranks read 1.1e-6 absolute there) and
+# ``CONTROL_LOSS_RTOL`` (the CPU tests' loss tolerance; 1.7e-6 read). The
+# parameters after step 1 (SGD, lr 0.1) are held to ``DP_PARAM_TOL`` of the
+# largest: one process given the same two clouds in the other order lands
+# 3.7e-3 of the largest away (the same measurement), since the full-width
+# step's gradient sits on ReLU and max-pool kinks within rounding; that
+# reordering runs beside the ranks here as the yardstick, and the later
+# steps, which drift apart both ways, are logged beside it.
+DP_LOSS_RTOL = 3.5e-4
+DP_STAT_RTOL, DP_STAT_ATOL = 2e-4, 6e-4
+# the CPU tests' tolerances on the statistics (tests/test_misc_parallel.py:
+# 540-546) and the losses, against the control
+STAT_RTOL, STAT_ATOL = 2e-4, 2e-6
+CONTROL_LOSS_RTOL = 2e-5
+DP_PARAM_TOL = 1e-2        # of the model's largest parameter, after step 1
+# phase 15: the fps model's full-width stage-1 backbone over 24000 points
+# rounded up to 96 x 256, a multiple of D x 4^4 (models/tgnet.py:104-107)
+SHARD_N = 24576
+SHARD_CLASSES = 17
+SHARD_TOL = 1e-4           # of the largest output, sharded (K6) vs dense (K3)
+
+
+def _digest(model) -> str:
+    """sha256 of every parameter and buffer of ``model`` (bit-identity)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in [*model.parameters(), *model.buffers()]:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_np(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+
+def dp_steps(mesh, batch: dict, steps: int) -> dict:
+    """Phase 14 on one rank: tgnet_fps at full width from the seeded
+    flax-like initial weights, ``steps`` data-parallel SGD steps (the
+    preset) on this rank's rows of the global ``batch``. Returns each step's
+    losses, seconds, K1/K2 launches and state digest, and the state after
+    step 1."""
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
+    from toothgroupnetwork_tpu_torch.parallel import replicate, shard_batch
+    from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.pipelines.tgn import use_full_fp32
+    from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
+
+    use_full_fp32()
+    task = get_task("tgnet_fps")
+    cfg = task.default_config()
+    model = task.build_module(cfg, device=mesh.device)
+    init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
+    opt = make_optimizer(cfg.optimizer, model.parameters())
+    replicate(model, mesh)
+    local = {k: torch.from_numpy(v).to(mesh.device)
+             for k, v in shard_batch(batch, mesh).items()}
+    out = {"steps": [], "mesh": mesh.describe()}
+    hook = _crops_hook(model, out)
+    for i in range(steps):
+        fps.fps.launches = knn.knn_select.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = train_step(model, opt, task, cfg, local, mesh=mesh)
+        torch.cuda.synchronize()
+        out["steps"].append({"s": time.perf_counter() - t0,
+                             "losses": {k: float(v) for k, v in vals.items()},
+                             "launches": {"fps": fps.fps.launches,
+                                          "knn_select": knn.knn_select.launches},
+                             "digest": _digest(model)})
+        hook.remove()
+        if i == 0 and mesh.rank == 0:
+            out["state1"] = _state_np(model)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(mesh.device) / 2**30
+    return out
+
+
+@contextlib.contextmanager
+def products_per_cloud(clouds: int):
+    """Phase 14's control: every matrix product of the one-process step
+    (each ``Dense`` and each batched ``torch.einsum``: the ground-truth
+    centroids the crops are cut around, the centroid loss) run on one
+    cloud's rows at a time (the leading axis, cloud-major, in ``clouds``
+    parts) and the parts concatenated, in the forward and so in the
+    backward. The products then have the shapes a rank holding one cloud
+    gives cuBLAS; the BatchNorm sums and the losses' reductions still run
+    over the whole batch at once, as one process takes them."""
+    from toothgroupnetwork_tpu_torch.nn.layers import Dense
+
+    plain, plain_einsum = Dense.forward, torch.einsum
+
+    def split(self, x):
+        if x.shape[0] % clouds:
+            return plain(self, x)
+        return torch.cat([plain(self, part) for part in x.chunk(clouds)], 0)
+
+    def split_einsum(eq, *ops):
+        ins, out = eq.replace(" ", "").split("->")
+        if not (out.startswith("b") and all(i.startswith("b") for i in ins.split(","))
+                and ops[0].shape[0] % clouds == 0):
+            return plain_einsum(eq, *ops)
+        parts = zip(*(o.chunk(clouds) for o in ops))
+        return torch.cat([plain_einsum(eq, *p) for p in parts], 0)
+
+    Dense.forward, torch.einsum = split, split_einsum
+    try:
+        yield
+    finally:
+        Dense.forward, torch.einsum = plain, plain_einsum
+
+
+def _crops_hook(model, store: dict):
+    """Keep the first forward's crop indices ``[B, 16, S]`` in ``store``."""
+    def keep(_module, _inputs, out):
+        store.setdefault("crops", out["nn_crop_indexes"].cpu().numpy())
+    return model.register_forward_hook(keep)
+
+
+def sharded_forward(mesh, state: dict, feat, arch: dict) -> dict:
+    """Phase 15 on one rank: the point-sharded eval forward
+    (``parallel.sharded_backbone_forward``) of this rank's rows of ``feat``,
+    every count set to 0 just before; its seconds, the sharded FPS's share
+    of them (``sharded_fps`` timed inside, each call synchronised), and the
+    K2 / K6 launches."""
+    from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+        PointTransformerSeg)
+    from toothgroupnetwork_tpu_torch.ops.kernels import attention, knn
+    from toothgroupnetwork_tpu_torch.parallel import shard_rows, sharded_backbone
+    from toothgroupnetwork_tpu_torch.parallel.sharded_backbone import (
+        extract_backbone_params)
+    from toothgroupnetwork_tpu_torch.pipelines.tgn import use_full_fp32
+
+    use_full_fp32()
+    dev = mesh.device
+    model = PointTransformerSeg(k=SHARD_CLASSES, c=feat.shape[-1], **arch, device=dev)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    params = extract_backbone_params(model)
+    local = shard_rows(torch.from_numpy(feat).to(dev), mesh)
+    fps_s = []
+    inner = sharded_backbone.sharded_fps
+
+    def timed_fps(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = inner(*a, **kw)
+        torch.cuda.synchronize()
+        fps_s.append(time.perf_counter() - t0)
+        return idx
+
+    sharded_backbone.sharded_fps = timed_fps
+    try:
+        knn.knn_select.launches = attention.fused_vector_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = sharded_backbone.sharded_backbone_forward(local, params, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        sharded_backbone.sharded_fps = inner
+    return {"s": secs, "fps_s": sum(fps_s), "fps_steps": sum(len(i) - 1 for i in out["fps_idx"]),
+            "launches": {"knn_select": knn.knn_select.launches,
+                         "fused_vector_attention": attention.fused_vector_attention.launches},
+            "mesh": mesh.describe(),
+            **{k: out[k].cpu().numpy() for k in ("sem_1", "offset_1", "embed")},
+            "fps_idx": [i.cpu().numpy() for i in out["fps_idx"]],
+            "knn_idx": [i.cpu().numpy() for i in out["knn_idx"]]}
+
+
+def knn_sets_close(pts: np.ndarray, query: np.ndarray, got: np.ndarray,
+                   ref: np.ndarray) -> tuple[int, float]:
+    """(rows whose neighbour sets differ, the worst ratio of a swapped
+    candidate's d2 gap to the k-th against the rounding bound 10 eps
+    (|q|^2 + |p|^2) of a float32 square distance, doubled). Raises past 1
+    (the near-tie rule of tests/test_torch_port_families.py)."""
+    rows = np.where((np.sort(got, 1) != np.sort(ref, 1)).any(1))[0]
+    q, p = query.astype(np.float64), pts.astype(np.float64)
+    worst = 0.0
+    for i in rows:
+        a, r = set(got[i].tolist()), set(ref[i].tolist())
+        d2 = ((p[list(a | r)] - q[i]) ** 2).sum(1)
+        d2 = dict(zip(list(a | r), d2))
+        kth = max(d2[j] for j in r)
+        for j in a ^ r:
+            bound = 10 * np.finfo(np.float32).eps * ((q[i] ** 2).sum() + (p[j] ** 2).sum())
+            worst = max(worst, abs(d2[j] - kth) / (2 * bound))
+    if worst > 1.0:
+        raise AssertionError(f"kNN lists differ past the near-tie bound ({worst:.3g})")
+    return len(rows), worst
+
+
+def phase_parallel(dev, work: Path) -> dict:
+    """Phases 14-15, the parallel layer on the card (``parallel/``).
+
+    14. tgnet_fps at full width, global batch 2 (phase 10's cases TR00 and
+        TR01), on two ranks sharing the card over gloo, ``DP_STEPS`` steps:
+        against the one-process batch-2 step on the card from the same
+        weights and against the control (``products_per_cloud``) (step
+        1's losses, BatchNorm running statistics and parameters within
+        the tolerances derived above; where each run parts from one
+        process, and the crops it cut; the later steps' losses logged
+        beside those of one process given the clouds in the other order),
+        every loss finite, the ranks bit-identical after
+        every step, each rank's K1 / K2 launches a step equal to the
+        one-process step's on one cloud, seconds a step each way; then one
+        step on a world-size-1 NCCL group against the one-process batch-1
+        step.
+    15. the fps model's full-width stage-1 backbone (c = 6, 17 classes,
+        planes 32..512) over a ``SHARD_N``-point synthetic arch, point-
+        sharded at D = 2 over gloo (``parallel.sharded_backbone_forward``)
+        against the dense port model's eval forward on the card: FPS
+        indices equal at every stage, the stages' kNN lists by the near-
+        tie rule, outputs within ``SHARD_TOL`` of the largest; K2 and K6
+        launches per rank; seconds and the sharded FPS's share.
+
+    Returns each kernel's launches per rank on both paths."""
+    from synthetic import make_synthetic_jaw_points
+
+    from toothgroupnetwork_tpu_torch.data import DentalScanDataset
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+        PointTransformerSeg)
+    from toothgroupnetwork_tpu_torch.models.tasks import (TGNET_FPS_MODEL_PARAMETER,
+                                                          backbone_kwargs)
+    from toothgroupnetwork_tpu_torch.ops import farthest_point_sample, knn_self
+    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
+    from toothgroupnetwork_tpu_torch.parallel import RankPool
+    from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
+
+    t_phase = time.perf_counter()
+    ds = DentalScanDataset(str(work / "train_data"))
+    items = [ds[i] for i in range(2)]
+    batch = {k: np.stack([it[k] for it in items]) for k in ("feat", "gt_seg_label", "mask")}
+    task = get_task("tgnet_fps")
+    cfg = task.default_config()
+
+    # the one-process steps on the card: batch 2 (the reference), batch 1
+    # (the launches of one cloud, and the NCCL step's reference)
+    def one_process(b: dict, steps: int) -> dict:
+        model = task.build_module(cfg, device=dev)
+        init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
+        opt = make_optimizer(cfg.optimizer, model.parameters())
+        on_card = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        out = {"steps": []}
+        hook = _crops_hook(model, out)
+        for i in range(steps):
+            fps.fps.launches = knn.knn_select.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals = train_step(model, opt, task, cfg, on_card)
+            torch.cuda.synchronize()
+            out["steps"].append({"s": time.perf_counter() - t0,
+                                 "losses": {k: float(v) for k, v in vals.items()},
+                                 "launches": {"fps": fps.fps.launches,
+                                              "knn_select": knn.knn_select.launches}})
+            hook.remove()
+            if i == 0:
+                out["state1"] = _state_np(model)
+        del model, opt
+        torch.cuda.empty_cache()
+        return out
+
+    ref2 = one_process(batch, DP_STEPS)
+    ref1 = one_process({k: v[:1] for k, v in batch.items()}, 1)
+    swapped = one_process({k: v[::-1].copy() for k, v in batch.items()}, DP_STEPS)
+    swapped["crops"] = swapped["crops"][::-1]
+    with products_per_cloud(DP_RANKS):
+        tiled = one_process(batch, 1)
+
+    def apart(run: dict, ref: dict = ref2) -> dict:
+        """How far ``run`` lands from ``ref`` (the one-process step): each
+        step's loss differences (relative), and after step 1 the largest
+        parameter difference, the largest statistic difference (absolute,
+        and over its tolerance and over the CPU tests'), the statistics
+        read worst, and the first statistic in the model's order past the
+        CPU tests' tolerance (where the two runs part); and the crops cut
+        in step 1: the slots whose point sets differ, and the points."""
+        got, want = run["state1"], ref["state1"]
+        slots = list(zip(run["crops"].reshape(-1, run["crops"].shape[-1]),
+                         ref["crops"].reshape(-1, ref["crops"].shape[-1])))
+        crops = [len(set(a.tolist()) ^ set(b.tolist())) // 2 for a, b in slots]
+        stats = [k for k in want if k.endswith((".mean", ".var"))]
+        diff = {k: np.abs(got[k] - want[k]) for k in stats}
+        over = {k: float((diff[k] / (DP_STAT_ATOL + DP_STAT_RTOL * np.abs(want[k]))).max())
+                for k in stats}
+        tight = {k: float((diff[k] / (STAT_ATOL + STAT_RTOL * np.abs(want[k]))).max())
+                 for k in stats}
+        return {
+            "loss_rel_diff": [{k: abs(v - rs["losses"][k]) / max(abs(rs["losses"][k]), 1e-12)
+                               for k, v in st["losses"].items()}
+                              for st, rs in zip(run["steps"], ref["steps"])],
+            "param_max_diff": max(float(np.abs(got[k] - want[k]).max())
+                                  for k in want if k not in stats),
+            "stat_max_abs_diff": max(float(d.max()) for d in diff.values()),
+            "stat_diff_over_tol": max(over.values()),
+            "stat_diff_over_cpu_test_tol": max(tight.values()),
+            "worst_stats": dict(sorted(over.items(), key=lambda kv: -kv[1])[:3]),
+            "first_stat_past_cpu_test_tol": next((k for k in stats if tight[k] > 1.0), None),
+            "crop_slots_apart": sum(c > 0 for c in crops), "crop_points_apart": sum(crops),
+            "crop_slots_in_another_order": sum(not np.array_equal(a, b) for a, b in slots)}
+
+    reordered = apart(swapped)
+    control = apart(tiled)
+    del swapped
+
+    # phase 14: two ranks over gloo on the one card
+    with RankPool(DP_RANKS, "cuda") as pool:
+        t0 = time.perf_counter()
+        ranks = pool.run(dp_steps, batch, DP_STEPS)
+        dp_wall = time.perf_counter() - t0
+
+        identical = all(ranks[r]["steps"][i]["digest"] == ranks[0]["steps"][i]["digest"]
+                        for r in range(1, DP_RANKS) for i in range(DP_STEPS))
+        # rank r cut the crops of cloud r
+        dp_run = dict(ranks[0], crops=np.concatenate([r["crops"] for r in ranks]))
+        dp = apart(dp_run)
+        vs_control = apart(dp_run, tiled)
+        largest = max(float(np.abs(v).max()) for k, v in ref2["state1"].items()
+                      if not k.endswith((".mean", ".var")))
+        launches = [[s["launches"] for s in r["steps"]] for r in ranks]
+        per_cloud = ref1["steps"][0]["launches"]
+        log("dp_train", what="tgnet_fps full width, global batch 2 on 2 ranks "
+            "sharing the card vs one process", mesh=ranks[0]["mesh"],
+            ranks_identical=identical, data_parallel=dp, one_process_reordered=reordered,
+            one_process_products_per_cloud=control,
+            data_parallel_vs_products_per_cloud=vs_control,
+            param_largest=largest, launches_per_rank_step=launches,
+            one_process_launches_per_step={"batch 2": ref2["steps"][0]["launches"],
+                                           "batch 1": per_cloud},
+            dp_step_s=[s["s"] for s in ranks[0]["steps"]],
+            one_process_batch2_step_s=[s["s"] for s in ref2["steps"]],
+            one_process_batch1_step_s=ref1["steps"][0]["s"],
+            rank_peak_gib=[r["peak_gib"] for r in ranks], pool_run_s=dp_wall)
+        if not identical:
+            raise AssertionError("data-parallel ranks differ after a step")
+        finite = all(np.isfinite(v) for st in ranks[0]["steps"] for v in st["losses"].values())
+        if not finite or max(dp["loss_rel_diff"][0].values()) > DP_LOSS_RTOL:
+            raise AssertionError(f"data-parallel losses vs one process: {dp}")
+        if dp["stat_diff_over_tol"] > 1.0 or dp["param_max_diff"] > DP_PARAM_TOL * largest:
+            raise AssertionError(f"data-parallel state after step 1 vs one process: {dp}")
+        if (max(vs_control["loss_rel_diff"][0].values()) > CONTROL_LOSS_RTOL
+                or vs_control["stat_diff_over_cpu_test_tol"] > 1.0
+                or vs_control["param_max_diff"] > DP_PARAM_TOL * largest):
+            raise AssertionError(f"data-parallel step 1 vs the control: {vs_control}")
+        if any(step != per_cloud for r in launches for step in r):
+            raise AssertionError(f"launches a rank {launches} != one cloud's {per_cloud}")
+
+        # phase 15: the point-sharded forward at D = 2
+        arch = backbone_kwargs(TGNET_FPS_MODEL_PARAMETER)
+        c = arch.pop("c")
+        gen = torch.Generator().manual_seed(15)
+        dense = PointTransformerSeg(k=SHARD_CLASSES, c=c, **arch, device=dev)
+        init_like_flax_(dense, gen)
+        with torch.no_grad():   # BatchNorm statistics off their identity
+            for name, buf in dense.named_buffers():
+                noise = torch.rand(buf.shape, generator=gen).to(dev)
+                buf.add_(noise + 0.5 if name.endswith("var") else (noise - 0.5) * 0.2)
+        pts, _, _ = make_synthetic_jaw_points(SHARD_N, 14, seed=15)
+        nrm = np.random.default_rng(15).standard_normal((SHARD_N, 3))
+        feat = np.concatenate([pts, nrm / np.linalg.norm(nrm, axis=1, keepdims=True)],
+                              1).astype(np.float32)
+        state = _state_np(dense)
+        t0 = time.perf_counter()
+        sh = pool.run(sharded_forward, state, feat, arch)
+        shard_wall = time.perf_counter() - t0
+
+    x = torch.from_numpy(feat).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = dense(x[None])
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    # the dense path's FPS ladder (K1) and stage kNN lists (K2)
+    p = x[:, :3].contiguous()
+    fps_ok, knn_rows, knn_worst = [], [], 0.0
+    strided = 0
+    for i, (s, k) in enumerate(zip(arch["stride"], arch["nsample"])):
+        if s != 1:
+            idx = farthest_point_sample(p, p.shape[0] // s)
+            fps_ok.append(all(np.array_equal(r["fps_idx"][strided], idx.cpu().numpy())
+                              for r in sh))
+            strided += 1
+            p = p[idx.long()]
+        ref_knn = knn_self(p, k)[0].cpu().numpy()
+        got_knn = np.concatenate([r["knn_idx"][i] for r in sh])
+        pts_np = p.cpu().numpy()
+        rows, worst = knn_sets_close(pts_np, pts_np, got_knn, ref_knn)
+        knn_rows.append(int(rows))
+        knn_worst = max(knn_worst, worst)
+    err = {}
+    for key in ("sem_1", "offset_1", "embed"):
+        ref = want[key][0].cpu().numpy()
+        got_o = np.concatenate([r[key] for r in sh])
+        err[key] = float(np.abs(got_o - ref).max() / np.abs(ref).max())
+    log("sharded_forward", what=f"tgnet stage-1 backbone, {SHARD_N} points, "
+        f"point-sharded on {DP_RANKS} ranks (K2 ring kNN, K6) vs the dense eval "
+        "forward (K1, K2, K3) on the card", mesh=sh[0]["mesh"], fps_equal=fps_ok,
+        knn_rows_differing=knn_rows, knn_worst_gap_over_bound=knn_worst,
+        max_err_over_largest=err, launches_per_rank=[r["launches"] for r in sh],
+        seconds=[r["s"] for r in sh], fps_seconds=[r["fps_s"] for r in sh],
+        fps_share=[r["fps_s"] / r["s"] for r in sh], fps_steps=sh[0]["fps_steps"],
+        dense_s=dense_s, pool_run_s=shard_wall)
+    if not all(fps_ok):
+        raise AssertionError("sharded FPS indices differ from K1's")
+    if max(err.values()) > SHARD_TOL:
+        raise AssertionError(f"sharded forward vs dense: {err}")
+    # ring_knn calls: each stage's kNN, each strided stage's TransitionDown,
+    # each decoder TransitionUp (k = 3) and each 1-NN upsample, D ring steps
+    # each; K6: every attention block, encoder and decoder
+    deep = len(arch["stride"]) - 1
+    expect = {"knn_select": DP_RANKS * (len(arch["stride"]) + 3 * deep),
+              "fused_vector_attention": sum(arch["blocks"])}
+    if any(r["launches"] != expect for r in sh):
+        raise AssertionError(f"sharded forward launches {[r['launches'] for r in sh]} "
+                             f"!= {expect}")
+
+    # one step on a world-size-1 NCCL group, against the one-process step
+    with RankPool(1, "cuda") as pool:
+        nccl = pool.run(dp_steps, {k: v[:1] for k, v in batch.items()}, 1)[0]
+    rel1 = {k: abs(v - ref1["steps"][0]["losses"][k]) / max(abs(ref1["steps"][0]["losses"][k]), 1e-12)
+            for k, v in nccl["steps"][0]["losses"].items()}
+    log("dp_nccl", what="one tgnet_fps step on a world-size-1 NCCL group vs one process",
+        mesh=nccl["mesh"], loss_rel_diff=rel1, launches=nccl["steps"][0]["launches"],
+        step_s=nccl["steps"][0]["s"], seconds=time.perf_counter() - t_phase)
+    if "nccl" not in nccl["mesh"] or max(rel1.values()) > DP_LOSS_RTOL:
+        raise AssertionError(f"NCCL step: {nccl['mesh']}, {rel1}")
+    return {"dp_train_launches_per_rank_step": launches[0][0],
+            "sharded_forward_launches_per_rank": sh[0]["launches"]}
+
+
 def short(kernel_name: str) -> str:
     """A device kernel's name without namespaces and arguments, template
     arguments kept (the two attention entries differ only there)."""
@@ -2748,6 +3225,7 @@ def main() -> int:
         families = phase_families(dev, work, scans[1])
         family_train = phase_family_train(dev, work,
                                           work / "families_scan" / scans[1].name)
+        parallel = phase_parallel(dev, work)
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
@@ -2774,6 +3252,10 @@ def main() -> int:
         # the device boundary route (phase 7b): a scan's launches
         rec.entry["device_boundary_launches_per_scan"] = {
             config: seen.get(name, 0) for config, seen in boundary.items()}
+        # the parallel layer (phases 14-15): a rank's launches in a
+        # data-parallel tgnet_fps step and in the point-sharded forward
+        for key, seen in parallel.items():
+            rec.entry[key] = seen.get(name, 0)
     # each K3 shape with its launches a scan, per configuration
     for row in records[2].entry["shapes"]:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)

@@ -478,11 +478,6 @@ class TestTrainer:
         with pytest.raises(RuntimeError, match="injected"):
             trainer.run(max_epochs=2)
 
-    def test_data_parallel_is_a_later_slice(self, tmp_path):
-        cfg = _tiny_cfg(tmp_path, data_parallel=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, get_task("tgnet_fps"), [], [], device="cpu")
-
 
 def test_cli_train_one_epoch(tmp_path, capsys):
     """cli.train on the CPU with a config the JAX package wrote; --resume

@@ -1,0 +1,293 @@
+"""Rank-side jobs of tests/test_torch_port_parallel.py: each runs on every
+rank of the test's spawned gloo pool (``parallel.RankPool``, four CPU
+ranks) as ``job(mesh, d, ...)`` on the mesh of the first ``d`` ranks, and
+returns this rank's result as numpy (None on a rank outside the mesh).
+This module imports torch and the port only, never JAX."""
+
+from __future__ import annotations
+
+import multiprocessing
+
+import numpy as np
+import torch
+
+from toothgroupnetwork_tpu_torch.models import get_task
+from toothgroupnetwork_tpu_torch.models.point_transformer.backbone import (
+    PointTransformerBlock, PointTransformerSeg, TransitionDown, TransitionUp)
+from toothgroupnetwork_tpu_torch.models.tgnet import TGNet
+from toothgroupnetwork_tpu_torch.parallel import (make_data_mesh, shard_rows,
+                                                  sharded_square_distance)
+from toothgroupnetwork_tpu_torch.parallel.ring import ring_knn
+from toothgroupnetwork_tpu_torch.parallel.sharded_backbone import (
+    extract_backbone_params, extract_block_params, sharded_backbone_forward,
+    sharded_encoder_stage, sharded_point_transformer_block, sharded_transition_down,
+    sharded_transition_up)
+from toothgroupnetwork_tpu_torch.parallel.sharded_ops import ring_gather, sharded_fps
+from toothgroupnetwork_tpu_torch.parallel.mesh import all_gather
+from toothgroupnetwork_tpu_torch.ops.kernels.attention import fold_bn
+from toothgroupnetwork_tpu_torch.train import Trainer
+
+_MESHES: dict = {}
+if multiprocessing.current_process().name != "MainProcess":
+    torch.set_num_threads(1)   # four ranks beside the other test workers
+
+
+def sub(mesh, d: int):
+    """The mesh of the pool's first ``d`` ranks (made once per process;
+    every rank calls this, in one order, as ``new_group`` requires)."""
+    if d == mesh.size:
+        return mesh
+    if d not in _MESHES:
+        _MESHES[d] = make_data_mesh(d, axis="model", device=mesh.device)
+    return _MESHES[d]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _load(module, state: dict, prefix: str = ""):
+    module.load_state_dict({k[len(prefix):]: v for k, v in state.items()
+                            if k.startswith(prefix)})
+    return module.eval()
+
+
+# ------------------------------------------------------------ primitives
+
+def ring_knn_job(mesh, d, query, points, k):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    idx, dist = ring_knn(shard_rows(_t(query), m), shard_rows(_t(points), m), k, m)
+    return _np(idx), _np(dist)
+
+
+def ring_knn_k_cap_job(mesh, d, n, k):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    try:
+        ring_knn(torch.zeros(n // d, 3), torch.zeros(n // d, 3), k, m)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def sharded_fps_job(mesh, d, xyz, n, mask):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    mk = None if mask is None else shard_rows(_t(mask), m)
+    return _np(sharded_fps(shard_rows(_t(xyz), m), n, m, mask=mk))
+
+
+def ring_gather_job(mesh, d, x, idx):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    return _np(ring_gather(shard_rows(_t(x), m), shard_rows(_t(idx), m), m))
+
+
+def square_distance_job(mesh, d, src, dst):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    return _np(sharded_square_distance(_t(src), _t(dst), m))
+
+
+# ------------------------------------------------------------ layers
+
+def transition_down_job(mesh, d, state, p, x, c, cout, k):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    td = _load(TransitionDown(c, cout, 4, k, device="cpu"), state)
+    params = {"w": td.linear.weight.detach(), "bn": fold_bn(td.bn)}
+    new_p, new_x = sharded_transition_down(shard_rows(_t(p), m), shard_rows(_t(x), m),
+                                           len(p) // 4, k, params, m)
+    return _np(new_p), _np(new_x)
+
+
+def block_job(mesh, d, state, p, x, kidx, c):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    blk = _load(PointTransformerBlock(c, device="cpu"), state, "blk.")
+    return _np(sharded_point_transformer_block(
+        shard_rows(_t(p), m), shard_rows(_t(x), m), shard_rows(_t(kidx), m),
+        extract_block_params(blk), m))
+
+
+def transition_up_job(mesh, d, state, p1, x1, p2, x2, c2, cout):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    tu = _load(TransitionUp(c2, cout, device="cpu"), state)
+    params = {"lin1": {"w": tu.linear1.weight.detach(), "b": tu.linear1.bias.detach()},
+              "lin2": {"w": tu.linear2.weight.detach(), "b": tu.linear2.bias.detach()},
+              "bn1": fold_bn(tu.bn1), "bn2": fold_bn(tu.bn2)}
+    return _np(sharded_transition_up(*(shard_rows(_t(a), m) for a in (p1, x1, p2, x2)),
+                                     params, m))
+
+
+def encoder_stage_job(mesh, d, state, p, x, c, cout, k_down, k_attn):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    down = _load(TransitionDown(c, cout, 4, k_down, device="cpu"), state, "down.")
+    blocks = [_load(PointTransformerBlock(cout, device="cpu"), state, f"block{j}.")
+              for j in (1, 2)]
+    new_p, new_x = sharded_encoder_stage(
+        shard_rows(_t(p), m), shard_rows(_t(x), m), len(p) // 4, k_down, k_attn,
+        {"w": down.linear.weight.detach(), "bn": fold_bn(down.bn)},
+        [extract_block_params(b) for b in blocks], m)
+    return _np(new_p), _np(new_x)
+
+
+def backbone_job(mesh, d, state, feat, k_cls, arch):
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    model = _load(PointTransformerSeg(k=k_cls, c=feat.shape[-1], **arch, device="cpu"),
+                  state)
+    out = sharded_backbone_forward(shard_rows(_t(feat), m),
+                                   extract_backbone_params(model), m)
+    return {"sem_1": _np(out["sem_1"]), "offset_1": _np(out["offset_1"]),
+            "embed": _np(out["embed"]), "fps_idx": [_np(i) for i in out["fps_idx"]]}
+
+
+def crop_stage2_job(mesh, d, state, crops, mask, arch):
+    """Stage 2 on this rank's crops, all-gathered (the crop axis sharded)."""
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    model = _load(TGNet(c=crops.shape[-1], **arch, device="cpu"), state)
+    with torch.no_grad():
+        out = model.stage2(shard_rows(_t(crops), m), shard_rows(_t(mask), m))
+    return {k: _np(all_gather(out[k], m).flatten(0, 1)) for k in ("sem_1", "offset_1")}
+
+
+# ------------------------------------------------------------ training
+
+def _trainer(name, mp, d, mesh, batches, state, lr):
+    task = get_task(name)
+    cfg = task.default_config()
+    cfg.model_parameter.update(mp)
+    cfg.data_parallel = d
+    cfg.optimizer.name, cfg.optimizer.lr, cfg.optimizer.momentum = "sgd", lr, 0.9
+    trainer = Trainer(cfg, task, batches, [], log_fn=lambda _s: None, device="cpu",
+                      mesh=mesh)
+    if state is not None:
+        trainer.model.load_state_dict({k: _t(v) for k, v in state.items()})
+    return trainer
+
+
+def _snapshot(trainer, stats) -> dict:
+    return {"stats": stats,
+            "state": {k: _np(v).copy() for k, v in trainer.model.state_dict().items()}}
+
+
+def data_parallel_job(mesh, d, name, mp, batches, state=None, lr=1e-4, step=0):
+    """``len(batches)`` SGD steps (momentum 0.9, ``lr``) of the ``Trainer``
+    at ``data_parallel = d`` over the global batches, from optimizer step
+    ``step`` (what a host stage and the dropout seed read), and on rank 0
+    the same steps in one process (no mesh). Returns (this rank's snapshot,
+    rank 0's one-process one)."""
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    dp = _trainer(name, mp, d, m, batches, state, lr)
+    dp.step = step
+    got = _snapshot(dp, dp.train_epoch())
+    if m.rank:
+        return got, None
+    one = _trainer(name, mp, 1, None, batches, state, lr)
+    one.step = step
+    return got, _snapshot(one, one.train_epoch())
+
+
+def trainer_epoch_job(mesh, d, name, mp, data_dir, ckpt):
+    """``Trainer(data_parallel=d)`` over a processed directory (batches of
+    2, val batches of 1): an epoch of ``train_epoch`` and ``eval_epoch``,
+    then one through ``run`` (checkpoints). Returns (train losses, val
+    losses, is_main)."""
+    from toothgroupnetwork_tpu_torch.data.dataset import BatchLoader, DentalScanDataset
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    task = get_task(name)
+    cfg = task.default_config()
+    cfg.model_parameter.update(mp)
+    cfg.data_parallel, cfg.checkpoint_path = d, ckpt
+    ds = DentalScanDataset(data_dir)
+    trainer = Trainer(cfg, task, BatchLoader(ds, 2, shuffle=True, seed=0),
+                      BatchLoader(ds, 1, shuffle=False), log_fn=lambda _s: None,
+                      device="cpu", mesh=m)
+    train, val = trainer.train_epoch(), trainer.eval_epoch()
+    trainer.run(max_epochs=1)
+    return train, val, trainer.is_main
+
+
+def bdl_resample_job(mesh, d, batches, info):
+    """tgnet_bdl's boundary resample (``BdlDataEngine``, the ground-truth
+    labels standing in for the frozen model's) over ``batches`` in turn: on
+    each rank over its rows under the data mesh, and on rank 0 over the
+    whole batches in one process. Returns (this rank's outputs and its
+    generator's state after them, rank 0's one-process ones)."""
+    from toothgroupnetwork_tpu_torch.parallel import data_parallel, shard_batch
+    from toothgroupnetwork_tpu_torch.train.bdl_engine import BdlDataEngine
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    cfg = get_task("tgnet_bdl").default_config()
+    cfg.model_parameter["boundary_sampling_info"].update(info)
+
+    def run(mesh_or_none, rows):
+        engine = BdlDataEngine("cpu")
+        engine._stage_labels = lambda _cfg, _feat, labels: labels.astype(np.float64)
+        outs = []
+        with data_parallel.context(mesh_or_none):
+            for b in batches:
+                outs.append(engine(None, rows(b), cfg))
+        return outs, engine.rng.bit_generator.state
+
+    got = run(m, lambda b: shard_batch(b, m))
+    return got, (run(None, lambda b: b) if m.rank == 0 else None)
+
+
+def trainer_retry_job(mesh, d, name, mp, data_dir, ckpt, fail_rank):
+    """``Trainer(data_parallel=d, elastic_retries=1)`` for two epochs over
+    a processed directory, rank ``fail_rank``'s host stage failing once in
+    the second epoch. Returns (epoch, step, the state's bytes, the log)."""
+    from toothgroupnetwork_tpu_torch.data.dataset import BatchLoader, DentalScanDataset
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    task = get_task(name)
+    cfg = task.default_config()
+    cfg.model_parameter.update(mp)
+    cfg.data_parallel, cfg.checkpoint_path, cfg.elastic_retries = d, ckpt, 1
+    ds = DentalScanDataset(data_dir)
+    logs = []
+    trainer = Trainer(cfg, task, BatchLoader(ds, 2, shuffle=True, seed=0),
+                      BatchLoader(ds, 1, shuffle=False), log_fn=logs.append,
+                      device="cpu", mesh=m)
+    host_batch, failed = trainer.host_batch, []
+
+    def flaky(batch):
+        if m.rank == fail_rank and trainer.epoch == 1 and not failed:
+            failed.append(True)
+            raise OSError("a scan could not be read")
+        return host_batch(batch)
+
+    trainer.host_batch = flaky
+    trainer.run(max_epochs=2)
+    state = b"".join(_np(v).tobytes() for v in trainer.model.state_dict().values())
+    return trainer.epoch, trainer.step, state, logs

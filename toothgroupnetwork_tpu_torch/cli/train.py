@@ -7,20 +7,32 @@ arguments, plus ``--device``, the card by default).
 
 ``--config_path`` reads a ``TrainConfig`` JSON, the one the JAX package's
 ``TrainConfig.save_json`` writes.
+
+``--data_parallel D`` (D > 1) spawns D rank processes in one
+``torch.distributed`` group (``parallel.RankPool``: start method ``spawn``,
+a ``file://`` store in a temporary directory), each training on its rows
+of every global batch (``--batch_size`` must divide by D). With ``--device
+cuda`` rank r takes ``cuda:r`` where the machine has D cards, over NCCL,
+and ``cuda:0`` otherwise, the ranks sharing the card over gloo; with
+``--device cpu`` the ranks run on the CPU over gloo. Rank 0 logs and
+writes the checkpoints; ``main`` then returns rank 0's summary (``epoch``,
+``step``, ``best_val``) instead of the ``Trainer``.
 """
 
 import argparse
 import os
+import sys
 
 from ..data.augment import build_augmenter
 from ..data.dataset import BatchLoader, DentalScanDataset
 from ..models import available_models, get_task
+from ..parallel.distributed import RankPool
 from ..train.config import TrainConfig
 from ..train.trainer import CUBLAS_WORKSPACE, Trainer
 from ..utils.device import resolve_device
 
 
-def main(argv=None):
+def _parser():
     parser = argparse.ArgumentParser(description="Train a tooth segmentation model")
     parser.add_argument("--model_name", required=True, choices=available_models())
     parser.add_argument("--config_path", default=None,
@@ -35,11 +47,32 @@ def main(argv=None):
     parser.add_argument("--data_parallel", type=int, default=None)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
+    return parser
 
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     # before any CUDA work: the cuBLAS workspace deterministic steps need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     device = resolve_device(args.device)
+    ranks = _config(args).data_parallel
+    if ranks > 1:
+        argv = sys.argv[1:] if argv is None else list(argv)
+        with RankPool(ranks, device.type) as pool:
+            return pool.run(_train_rank, argv)[0]
+    return _train(args, device)
+
+
+def _train_rank(mesh, argv):
+    """One rank of ``--data_parallel``: train on the rank's device (rank 0
+    prints); returns the run's summary."""
+    trainer = _train(_parser().parse_args(argv), mesh.device,
+                     say=print if mesh.rank == 0 else (lambda *_: None))
+    return {"epoch": trainer.epoch, "step": trainer.step,
+            "best_val": trainer.best_val}
+
+
+def _config(args) -> TrainConfig:
     task = get_task(args.model_name)
     if args.config_path:
         config = TrainConfig.load_json(args.config_path)
@@ -57,6 +90,12 @@ def main(argv=None):
         config.generator.val_batch_size = args.batch_size
     if args.data_parallel is not None:
         config.data_parallel = args.data_parallel
+    return config
+
+
+def _train(args, device, say=print):
+    config = _config(args)
+    task = get_task(args.model_name)
 
     train_ds = DentalScanDataset(
         config.generator.input_data_dir_path,
@@ -71,12 +110,13 @@ def main(argv=None):
     train_loader = BatchLoader(train_ds, config.generator.train_batch_size,
                                shuffle=True, seed=config.seed)
     val_loader = BatchLoader(val_ds, config.generator.val_batch_size, shuffle=False)
-    print(f"train scans: {len(train_ds)}, val scans: {len(val_ds)}")
+    say(f"train scans: {len(train_ds)}, val scans: {len(val_ds)}")
 
-    trainer = Trainer(config, task, train_loader, val_loader, device=device)
+    trainer = Trainer(config, task, train_loader, val_loader, log_fn=say,
+                      device=device)
     if args.resume:
         epoch = trainer.resume()
-        print(f"resumed at epoch {epoch}")
+        say(f"resumed at epoch {epoch}")
     trainer.run()
     return trainer
 

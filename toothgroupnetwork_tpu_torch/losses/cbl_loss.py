@@ -23,6 +23,7 @@ import torch
 from torch.nn import functional as F
 
 from ..ops import index_points, knn_points
+from ..parallel import data_parallel
 
 _EPS = 1e-12
 
@@ -76,7 +77,7 @@ def cbl_loss_per_stage(cbl_stages: list[dict], target: torch.Tensor,
         row_loss = -torch.log(pos / ex.sum(dim=-1) + _EPS)
 
         pm = point_mask.to(row_loss.dtype)
-        losses.append((row_loss * pm).sum() / torch.clamp_min(pm.sum(), 1.0) * weight)
+        losses.append(data_parallel.ratio((row_loss * pm).sum(), pm.sum(), 1.0) * weight)
     return losses
 
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from ..parallel import data_parallel
+
 
 def tooth_class_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
                      mask: torch.Tensor | None = None,
@@ -29,9 +31,9 @@ def tooth_class_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: in
         off = label_smoothing / (num_classes - 1)
         ce = -(onehot * (conf - off) + off).mul(logp).sum(dim=-1)
         if mask is None:
-            return ce.mean()
+            return data_parallel.mean(ce)
         m = mask.to(ce.dtype)
-        return (ce * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return data_parallel.ratio((ce * m).sum(), m.sum(), 1.0)
     # the log-probability of the label as a one-hot product: exact, and its
     # backward is elementwise (no scatter)
     ce = -(onehot * logp).sum(dim=-1)
@@ -39,11 +41,16 @@ def tooth_class_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: in
          else torch.as_tensor(weight, dtype=ce.dtype, device=ce.device)[labels])
     if mask is not None:
         w = w * mask.to(ce.dtype)
-    return (ce * w).sum() / torch.clamp_min(w.sum(), 1e-8)
+    return data_parallel.ratio((ce * w).sum(), w.sum(), 1e-8)
 
 
 def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
-    """``mean_b ||I - T T^T||_F`` over a batch of ``[B, d, d]`` transforms."""
+    """``mean_b ||I - T T^T||_F`` over a batch of ``[B, d, d]`` transforms.
+
+    A mean of per-cloud values over this rank's equal slice of the batch:
+    the data-parallel step's mean over the ranks makes it the global mean,
+    value and gradient (``parallel/data_parallel.py``), so it needs no
+    collective of its own."""
     eye = torch.eye(trans.shape[-1], dtype=trans.dtype, device=trans.device)
     diff = trans @ trans.transpose(-1, -2) - eye
     return torch.sqrt((diff * diff).sum(dim=(-2, -1)) + 1e-12).mean()

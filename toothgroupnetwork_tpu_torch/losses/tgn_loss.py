@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import data_parallel
+
 _N_TEETH = 16
 _BIG = 1e9
 
@@ -44,7 +46,7 @@ def batch_center_offset_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
     d2 = ((moved[:, None, :, :] - cent[:, :, None, :]) ** 2).sum(dim=-1)  # [B,16,N]
     per_tooth = (d2 * tooth_f).sum(dim=-1) / torch.clamp_min(counts, 1.0)
     vf = valid.to(torch.float32)
-    centroid_loss = (per_tooth * vf).sum() / torch.clamp_min(vf.sum(), 1.0)
+    centroid_loss = data_parallel.ratio((per_tooth * vf).sum(), vf.sum(), 1.0)
 
     off_norm = torch.linalg.vector_norm(pred_offset, dim=-1)           # [B,N]
     off_dir = pred_offset / torch.clamp_min(off_norm, 1e-12)[..., None]
@@ -58,7 +60,7 @@ def batch_center_offset_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
     n_sel = sel.sum(dim=-1)
     per_tooth_dir = (sq * sel).sum(dim=-1) / torch.clamp_min(n_sel, 1.0)
     has_dir = (n_sel > 0).to(torch.float32)
-    dir_loss = (per_tooth_dir * has_dir).sum() / torch.clamp_min(has_dir.sum(), 1.0)
+    dir_loss = data_parallel.ratio((per_tooth_dir * has_dir).sum(), has_dir.sum(), 1.0)
     return centroid_loss, dir_loss
 
 
@@ -84,4 +86,7 @@ def batch_chamfer_distance_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
         fg = fg & point_mask.to(torch.bool)
     fgf = fg.to(torch.float32)
     per_cloud = (ratio * fgf).sum(dim=-1) / torch.clamp_min(fgf.sum(dim=-1), 1.0)
+    # a mean of per-cloud values over this rank's equal slice of the batch:
+    # the data-parallel step's mean over the ranks makes it the global mean,
+    # value and gradient, so it needs no collective of its own
     return per_cloud.mean()

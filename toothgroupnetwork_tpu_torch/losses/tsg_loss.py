@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from ..parallel import data_parallel
+
 _BIG = 1e9
 
 
@@ -42,9 +44,9 @@ def smooth_l1(pred, target):
 
 def _masked_mean(x, mask):
     if mask is None:
-        return x.mean()
+        return data_parallel.mean(x)
     m = mask.to(x.dtype)
-    return (x * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return data_parallel.ratio((x * m).sum(), m.sum(), 1.0)
 
 
 def distance_loss(pred_distance, sample_xyz, centroids, cent_valid, mask=None):
@@ -62,7 +64,7 @@ def centroid_dist_loss(pred_offset, sample_xyz, pred_distance, centroids,
     if mask is not None:
         sel = sel & mask.to(torch.bool)
     sf = sel.to(min_d.dtype)
-    loss = (min_d * sf).sum() / torch.clamp_min(sf.sum(), 1.0)
+    loss = data_parallel.ratio((min_d * sf).sum(), sf.sum(), 1.0)
 
     # each centroid to its nearest moved point (amin: ties share the
     # gradient, as jnp.min's does)
@@ -71,7 +73,7 @@ def centroid_dist_loss(pred_offset, sample_xyz, pred_distance, centroids,
         d2 = torch.where(mask.to(torch.bool)[:, None, :], d2, _BIG)
     min_c = d2.amin(dim=-1)                                              # [B,16]
     cf = ((min_c <= 0.2) & cent_valid).to(min_c.dtype)
-    return loss + (min_c * cf).sum() / torch.clamp_min(cf.sum(), 1.0)
+    return loss + data_parallel.ratio((min_c * cf).sum(), cf.sum(), 1.0)
 
 
 def chamfer_distance_loss(pred_offset, sample_xyz, centroids, cent_valid,
@@ -83,7 +85,7 @@ def chamfer_distance_loss(pred_offset, sample_xyz, centroids, cent_valid,
     if mask is not None:
         sel = sel & mask.to(torch.bool)
     sf = sel.to(ratio.dtype)
-    return (ratio * sf).sum() / torch.clamp_min(sf.sum(), 1.0)
+    return data_parallel.ratio((ratio * sf).sum(), sf.sum(), 1.0)
 
 
 def centroid_loss(pred_offset, sample_xyz, pred_distance, centroids, cent_valid,

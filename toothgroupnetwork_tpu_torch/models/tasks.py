@@ -17,6 +17,7 @@ from ..losses import (batch_center_offset_loss, batch_chamfer_distance_loss,
                       cbl_loss, centroid_loss, first_seg_loss, id_loss,
                       second_seg_loss, tooth_class_loss)
 from ..ops import index_points
+from ..parallel import data_parallel
 from ..train.config import OptimizerConfig, SchedulerConfig, TrainConfig
 from .dgcnn import DGCNNSeg
 from .point_transformer import PointTransformerSeg
@@ -350,7 +351,9 @@ def _tsegnet_host_stage(model, batch, config, step) -> dict:
     host, each cloud's DBSCAN cluster centres (``cluster_centres``), at most
     ``N_CROPS_TRAIN`` of them chosen by ``default_rng(step).permutation``
     (``step``: the optimizer steps taken, JAX's ``state.step``), padded
-    with the 1e3 sentinel."""
+    with the 1e3 sentinel. In a data-parallel step each rank proposes for
+    its own rows, after replaying the draws of the earlier ranks' clouds,
+    so the proposals are those of the global batch."""
     device = next(model.parameters()).device
     feat = torch.from_numpy(np.ascontiguousarray(batch["feat"])).to(device)
     mask = batch.get("mask")
@@ -364,8 +367,12 @@ def _tsegnet_host_stage(model, batch, config, step) -> dict:
     b = l3_xyz.shape[0]
     centers = np.full((b, N_CROPS_TRAIN, 3), 1e3, np.float32)
     valid = np.zeros((b, N_CROPS_TRAIN), bool)
-    for i in range(b):
-        cents = cluster_centres(l3_xyz[i], offset[i], dist[i])
+    found = [cluster_centres(l3_xyz[i], offset[i], dist[i]) for i in range(b)]
+    # in a data-parallel step the clouds of earlier ranks drew first
+    for n in data_parallel.around([len(c) for c in found])[0]:
+        if n:
+            rng.permutation(n)
+    for i, cents in enumerate(found):
         if not len(cents):
             continue
         cents = cents[rng.permutation(len(cents))[:N_CROPS_TRAIN]]

@@ -10,6 +10,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import data_parallel
+
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Max over ``dim`` with invalid positions held at -1e30 (so a fully
@@ -65,8 +67,10 @@ class MaskedBatchNorm(nn.Module):
     in float32; the running statistics take the unbiased variance with
     flax's momentum 0.9 (torch's 0.1). An empty mask normalises with mean 0
     and variance 1 and keeps the running statistics, as the JAX module does
-    (a variance of 0 would scale a deep stack to inf). Built in eval mode;
-    ``train()`` selects the batch statistics."""
+    (a variance of 0 would scale a deep stack to inf). Inside a
+    data-parallel step the batch is the global one, summed over the ranks
+    (``data_parallel.psum``), and the empty-mask rule reads its count.
+    Built in eval mode; ``train()`` selects the batch statistics."""
 
     momentum = 0.9
 
@@ -87,28 +91,30 @@ class MaskedBatchNorm(nn.Module):
             return y.to(self.dtype)
         xf = x.float()
         red = tuple(range(x.dim() - 1))
-        empty = None
-        if mask is None:
-            n = float(x.numel() // x.shape[-1])
-            denom = max(n - 1.0, 1.0)
-            mean = xf.mean(dim=red)
-            var = ((xf - mean) ** 2).mean(dim=red)
+        # one path for one process and a data-parallel step: the masked sums
+        # and the count, then the squared deviations from their mean (the
+        # two-pass form), each summed over the ranks (the identity without
+        # a mesh; differentiable under one)
+        w = None if mask is None else mask[..., None].float()
+        if w is None:
+            s1, cnt = xf.sum(dim=red), xf.new_full((1,), x.numel() // x.shape[-1])
         else:
-            w = mask[..., None].float()
-            n_raw = w.sum()
-            n = torch.clamp_min(n_raw, 1.0)
-            denom = torch.clamp_min(n - 1.0, 1.0)
-            mean = (xf * w).sum(dim=red) / n
-            var = (((xf - mean) ** 2) * w).sum(dim=red) / n
-            empty = n_raw < 0.5
-            var = torch.where(empty, 1.0, var)
+            s1, cnt = (xf * w).sum(dim=red), w.sum().reshape(1)
+        s = data_parallel.psum(torch.cat([s1, cnt]))
+        n_raw = s[-1]
+        n = torch.clamp_min(n_raw, 1.0)
+        denom = torch.clamp_min(n - 1.0, 1.0)
+        mean = s[:-1] / n
+        dev = (xf - mean) ** 2
+        var = data_parallel.psum((dev if w is None else dev * w).sum(dim=red)) / n
+        empty = n_raw < 0.5
+        var = torch.where(empty, 1.0, var)
         with torch.no_grad():
             unbiased = var * n / denom
             new_mean = self.momentum * self.mean + (1 - self.momentum) * mean
             new_var = self.momentum * self.var + (1 - self.momentum) * unbiased
-            if empty is not None:
-                new_mean = torch.where(empty, self.mean, new_mean)
-                new_var = torch.where(empty, self.var, new_var)
+            new_mean = torch.where(empty, self.mean, new_mean)
+            new_var = torch.where(empty, self.var, new_var)
             self.mean.copy_(new_mean)
             self.var.copy_(new_var)
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
@@ -158,8 +164,10 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise ValueError("Dropout in train mode needs a generator "
                              "(train_step(..., generator=...))")
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < 1.0 - self.p
+        # under a data-parallel step, this rank's rows of the global draw
+        keep = data_parallel.global_rows(
+            x.shape, lambda shape: torch.rand(shape, generator=self.generator,
+                                              device=x.device)) < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 

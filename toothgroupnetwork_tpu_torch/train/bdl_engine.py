@@ -36,6 +36,7 @@ from scipy.spatial import cKDTree
 
 from ..data.mesh_io import load_mesh_arr
 from ..data.preprocess import Y_AXIS_MAX, Y_AXIS_MIN, fdi_to_class, fps_indices
+from ..parallel import data_parallel
 from ..postprocess.clustering import clustering_points, first_label_ratio
 
 
@@ -163,18 +164,32 @@ class BdlDataEngine:
         mesh_paths = batch.get("mesh_path") or [None] * feats.shape[0]
         augmenters = batch.get("augmenter") or [None] * feats.shape[0]
 
+        items = [self._prepare(config, feats[i], labels[i], mesh_paths[i],
+                               augmenters[i], bdl_ratio, n_bdl, n_all, cache_dir)
+                 for i in range(feats.shape[0])]
+        # the resample draws from one generator, cloud by cloud: in a
+        # data-parallel step each rank replays the draws of the earlier
+        # ranks' clouds before its own and of the later ranks' after them,
+        # so that every rank's stream is the one-process stream
+        before, after = data_parallel.around([it["draws"] for it in items
+                                              if "draws" in it])
+        for spec in before:
+            self._draw(spec)
         out_feat = np.empty((feats.shape[0], n_all, feats.shape[2]), np.float32)
         out_label = np.empty((feats.shape[0], n_all), np.int32)
-        for i in range(feats.shape[0]):
-            f, l = self._one_item(config, feats[i], labels[i], mesh_paths[i],
-                                  augmenters[i], bdl_ratio, n_bdl, n_all,
-                                  cache_dir)
-            out_feat[i], out_label[i] = f, l
+        for i, it in enumerate(items):
+            out_feat[i], out_label[i] = self._finish(it, n_bdl, n_all)
+        for spec in after:
+            self._draw(spec)
         return {"feat": out_feat, "gt_seg_label": out_label,
                 "mask": np.ones(out_label.shape, bool)}
 
-    def _one_item(self, config, feat, labels, mesh_path, augmenter, bdl_ratio,
-                  n_bdl, n_all, cache_dir):
+    def _prepare(self, config, feat, labels, mesh_path, augmenter, bdl_ratio,
+                 n_bdl, n_all, cache_dir) -> dict:
+        """One case up to its random draws: ``{"out": (feat, labels)}`` when
+        it needs none (cached, or smaller than ``n_all``), else the case's
+        arrays, its boundary mask and ``draws``, the spec of its draws
+        (:meth:`_draw`)."""
         base_name = None
         if mesh_path:
             parts = os.path.basename(mesh_path).split("_")
@@ -187,7 +202,7 @@ class BdlDataEngine:
             sampled_feat, sampled_label = arr[:, :6], arr[:, 6].astype(np.int32)
             if augmenter is not None:
                 sampled_feat = augmenter.run(sampled_feat.copy())
-            return sampled_feat.astype(np.float32), sampled_label
+            return {"out": (sampled_feat.astype(np.float32), sampled_label)}
 
         # original full-res source (fallback: the preprocessed cloud itself)
         if base_name and base_name in self._stl_map and base_name in self._json_map:
@@ -196,7 +211,7 @@ class BdlDataEngine:
         else:
             org_feat, org_label = feat.copy(), labels.copy()
         if org_feat.shape[0] < n_all:
-            return feat[:n_all], labels[:n_all]
+            return {"out": (feat[:n_all], labels[:n_all])}
 
         ins = self._stage_labels(config, feat, labels)
 
@@ -208,10 +223,33 @@ class BdlDataEngine:
             _, nn40 = tree.query(auged[:, :3], k=k, workers=-1)
             ratio = first_label_ratio(ins[np.atleast_2d(nn40)])
         bd = ratio < bdl_ratio
+        n_bd = int(bd.sum())
+        kept = min(n_bd, n_bdl)
+        total = kept + min(org_feat.shape[0] - n_bd, n_all - kept)
+        return {"org": (org_feat, auged, org_label), "bd": bd,
+                "cache_path": cache_path, "draws": (n_bd, total, n_all)}
+
+    def _draw(self, spec):
+        """A case's draws, in order: the permutation of its ``n_bd``
+        boundary points, then, when its ``total`` sampled points fall short
+        of ``n_all``, the indices of the repeats that pad it."""
+        n_bd, total, n_all = spec
+        perm = self.rng.permutation(n_bd)
+        reps = self.rng.integers(0, total, n_all - total) if total < n_all else None
+        return perm, reps
+
+    def _finish(self, item: dict, n_bdl, n_all):
+        """A prepared case resampled: up to ``n_bdl`` boundary points drawn
+        uniformly, FPS of the rest, repeats to pad; cached unaugmented."""
+        if "out" in item:
+            return item["out"]
+        org_feat, auged, org_label = item["org"]
+        bd, cache_path = item["bd"], item["cache_path"]
+        perm, reps = self._draw(item["draws"])
 
         def resample(sel_feat, sel_auged, sel_label, n, method):
             if method == "uniformly":
-                idx = self.rng.permutation(sel_feat.shape[0])[:n]
+                idx = perm[:n]
             elif sel_feat.shape[0] <= n:
                 idx = np.arange(sel_feat.shape[0])
             else:
@@ -227,7 +265,6 @@ class BdlDataEngine:
         # pad if still short (degenerate tiny meshes)
         total = bd_f.shape[0] + nb_f.shape[0]
         if total < n_all:
-            reps = self.rng.integers(0, total, n_all - total)
             all_f = np.concatenate([bd_f, nb_f])[list(range(total)) + list(reps)]
             all_a = np.concatenate([bd_a, nb_a])[list(range(total)) + list(reps)]
             all_l = np.concatenate([bd_l, nb_l])[list(range(total)) + list(reps)]
