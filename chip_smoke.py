@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port (toothgroupnetwork_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parallel    # phases 1-3 and 14-16 only
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It exits non-zero, before printing any result, when there
@@ -124,15 +125,29 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      each way; one step on a world-size-1 NCCL group;
  15. the point-sharded forward: the fps model's full-width stage-1
      backbone over a 24576-point arch on the two ranks
-     (``parallel.sharded_backbone_forward``: sharded FPS, K2 ring kNN, ring
-     gathers, K6) against the dense port model's eval forward on the card:
+     (``parallel.sharded_backbone_forward``: sharded FPS, K2 over the
+     gathered coordinates, ring gathers, K6) against the dense port model's eval forward on the card:
      FPS indices equal, kNN lists by the near-tie rule, outputs within 1e-4
      of the largest, K2 and K6 launches a rank, seconds and the sharded
-     FPS's share.
+     FPS's share;
+ 16. the point-sharded training step (``parallel/sharded_train.py``):
+     the pointtransformer preset at full width, batch 1 on phase 10's first
+     24000-point case, its point axis split over the two ranks, against the
+     dense one-process step on the card (losses, statistics, parameters;
+     tolerances derived beside ``PS_LOSS_RTOL``) and beside the control, the
+     dense step on the cloud twice (batch 2), and the dense step's own
+     update; two sharded steps from one state bit-identical, the ranks'
+     digests equal, K1 and K2 launched a rank as often as in the dense step
+     (each on the gathered coordinates), seconds a step, the FPS's share
+     and peak memory a rank.
 
-Every log line carries the card's nvidia-smi name and power limit. Then one
-JSON line of the kernels, the nvidia-smi line again, and last the line
-``{"ok": true, "device": {...}}``.
+Every log line carries the card's nvidia-smi name and power limit. Then
+one JSON line of the kernels, phase 16's summary again, the nvidia-smi line
+again, and last the line ``{"ok": true, "device": {...}}``. With
+``--parallel`` the run builds the kernels, holds them to their plain
+versions (phase 3) and runs phases 14-16 on the data phase 10 writes; it
+ends with phase 16's summary and the nvidia-smi line, and prints no
+kernels line and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1512,6 +1527,18 @@ def phase_serve_many(pipes: dict, work: Path, kernels) -> None:
         raise AssertionError(f"kernel library loaded {build.build_info['loads']} times")
 
 
+def write_train_data(work: Path) -> None:
+    """The labelled synthetic arch cases ``TRAIN_CASES`` under
+    ``work/train_data`` and their split files."""
+    from synthetic import write_processed_npy
+
+    for i, (case, jaw, teeth) in enumerate(TRAIN_CASES):
+        write_processed_npy(str(work / "train_data"), case, jaw, n_points=N_POINTS,
+                            n_teeth=teeth, seed=20 + i)
+    (work / "train.txt").write_text("TR00\nTR01\n")
+    (work / "val.txt").write_text("TR02\n")
+
+
 def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
     """tgnet_fps training at full width (planes 32..512, 24000 points, 16
     crops of 3072, batch 1, the SGD preset and its seven loss weights) on
@@ -1534,8 +1561,6 @@ def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
         kernels).
 
     Returns K1-K3's launches per train step and per val scan."""
-    from synthetic import write_processed_npy
-
     from toothgroupnetwork_tpu_torch.cli import train as cli_train
     from toothgroupnetwork_tpu_torch.data import DentalScanDataset
     from toothgroupnetwork_tpu_torch.models import get_task
@@ -1547,12 +1572,8 @@ def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
     from toothgroupnetwork_tpu_torch.train.trainer import Trainer
     from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
 
+    write_train_data(work)
     data = work / "train_data"
-    for i, (case, jaw, teeth) in enumerate(TRAIN_CASES):
-        write_processed_npy(str(data), case, jaw, n_points=N_POINTS, n_teeth=teeth,
-                            seed=20 + i)
-    (work / "train.txt").write_text("TR00\nTR01\n")
-    (work / "val.txt").write_text("TR02\n")
     task = get_task("tgnet_fps")
     cfg = task.default_config()
     kernels = (fps.fps, knn.knn_select, attention.fused_vector_attention_packed_x,
@@ -3089,7 +3110,7 @@ def phase_parallel(dev, work: Path) -> dict:
         got_o = np.concatenate([r[key] for r in sh])
         err[key] = float(np.abs(got_o - ref).max() / np.abs(ref).max())
     log("sharded_forward", what=f"tgnet stage-1 backbone, {SHARD_N} points, "
-        f"point-sharded on {DP_RANKS} ranks (K2 ring kNN, K6) vs the dense eval "
+        f"point-sharded on {DP_RANKS} ranks (K2 kNN, K6) vs the dense eval "
         "forward (K1, K2, K3) on the card", mesh=sh[0]["mesh"], fps_equal=fps_ok,
         knn_rows_differing=knn_rows, knn_worst_gap_over_bound=knn_worst,
         max_err_over_largest=err, launches_per_rank=[r["launches"] for r in sh],
@@ -3101,10 +3122,11 @@ def phase_parallel(dev, work: Path) -> dict:
     if max(err.values()) > SHARD_TOL:
         raise AssertionError(f"sharded forward vs dense: {err}")
     # ring_knn calls: each stage's kNN, each strided stage's TransitionDown,
-    # each decoder TransitionUp (k = 3) and each 1-NN upsample, D ring steps
-    # each; K6: every attention block, encoder and decoder
+    # each decoder TransitionUp (k = 3) and each 1-NN upsample, one launch
+    # each on the gathered coordinates; K6: every attention block, encoder
+    # and decoder
     deep = len(arch["stride"]) - 1
-    expect = {"knn_select": DP_RANKS * (len(arch["stride"]) + 3 * deep),
+    expect = {"knn_select": len(arch["stride"]) + 3 * deep,
               "fused_vector_attention": sum(arch["blocks"])}
     if any(r["launches"] != expect for r in sh):
         raise AssertionError(f"sharded forward launches {[r['launches'] for r in sh]} "
@@ -3124,6 +3146,250 @@ def phase_parallel(dev, work: Path) -> dict:
             "sharded_forward_launches_per_rank": sh[0]["launches"]}
 
 
+# phase 16: the point-sharded train step (parallel/sharded_train.py), the
+# pointtransformer preset at full width and batch 1 on phase 10's first
+# 24000-point case, its point axis split over two ranks sharing the card
+# over gloo, against the dense one-process step on the card. The sharded
+# step runs the dense step's arithmetic on each rank's rows, its selections
+# (FPS through K1, kNN through K2, on the gathered coordinates) equal to
+# the dense ones, so the two part only where a sum is taken in another
+# order: each BatchNorm sums its two shards' partial sums (the split sums
+# of phase 14's derivation: about log2(n) eps relative a statistic under
+# torch's cascaded reductions, n = 24000 x 36 = 8.6e5 neighbourhood rows at
+# the widest, log2 = 20, 2.4e-6; the step's 132 train-mode BatchNorms
+# stack at most to 3.2e-4 in a loss: ``PS_LOSS_RTOL``), the loss's
+# normaliser, each gathered row's gradient summed by its owner after the
+# other rank's share, and every matrix product at half the rows, which
+# cuBLAS may tile otherwise (phase 14's control: 2.4e-7 a statistic from
+# the products alone). A running statistic moves by a tenth of its batch
+# moment, so ``PS_STAT_ATOL`` (1e-5) holds it to four times the split-sum
+# bound of a moment of unit size.
+#
+# The parameters. The control is the dense step on the cloud twice (batch
+# 2): the same function in exact arithmetic, the same selections, every
+# sum over the point axis and every product taken over twice the rows, as
+# the ranks take theirs over half. (The cloud's rows reordered would not
+# do: the synthetic arch has exactly equidistant points, FPS and kNN break
+# those ties by index, and the reordered step took other points: its loss
+# 2.3e-5 and its statistics 1.9e-3 from the dense step's.) Its running
+# variances part by design: the unbiased correction n / (n - 1) follows
+# the row count (93 / 92 against 186 / 185 at the deepest stage), so the
+# control's statistics are held by their means. After one SGD step at lr
+# 0.1 (measured on an H100, NVIDIA H100 80GB HBM3, 700.00 W) the control
+# lands 1.9e-3 of the largest parameter (1.313) from the dense step and
+# the ranks 4.1e-3, both at ``enc1_down.linear.weight``, whose update is
+# the step's largest, 0.861; in L2 over the whole update the control
+# reads 3.1e-3 and the ranks 2.3e-3. A near-tie in a ReLU or a max over
+# the neighbours, decided within rounding, moves a share of a gradient
+# either way. So both are held to ``PS_PARAM_TOL`` of the largest (2.4x
+# the ranks' reading) and ``PS_L2_TOL`` of the update in L2 (3x the
+# control's), and the phase checks that the first bound stays under
+# ``PS_UPDATE_SHARE`` of the dense step's largest update (it reads 1.5 %):
+# a step that left the parameters unchanged, or one with a gradient off
+# by a share of its own size, fails.
+PS_RANKS = 2
+PS_LOSS_RTOL = 3.2e-4
+PS_STAT_RTOL, PS_STAT_ATOL = 2e-4, 1e-5
+PS_PARAM_TOL = 1e-2        # of the model's largest parameter, after step 1
+PS_L2_TOL = 1e-2           # of the dense step's update, in L2 over every parameter
+PS_UPDATE_SHARE = 0.1      # PS_PARAM_TOL x largest under this share of the update
+
+
+def point_sharded_steps(mesh, batch: dict, state: dict) -> dict:
+    """Phase 16 on one rank: the point-sharded pointtransformer step
+    (``make_point_sharded_train_step``, the preset's SGD) on this rank's
+    rows of ``batch``, twice from ``state``. Each run's losses, seconds,
+    the FPS's seconds (the gather and K1, each call synchronised), the K1 /
+    K2 launches (every count set to 0 just before the step), the state
+    digest and the peak memory; rank 0 also returns the state after the
+    first."""
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.models.point_transformer import backbone
+    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
+    from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
+        make_point_sharded_train_step, shard_batch_points)
+    from toothgroupnetwork_tpu_torch.pipelines.tgn import use_full_fp32
+    from toothgroupnetwork_tpu_torch.train import make_optimizer
+
+    use_full_fp32()
+    task = get_task("pointtransformer")
+    cfg = task.default_config()
+    step = make_point_sharded_train_step(task, cfg, mesh)
+    local = shard_batch_points(batch, mesh)
+    fps_s = []
+    inner = backbone.farthest_point_sample
+
+    def timed_fps(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = inner(*a, **kw)
+        torch.cuda.synchronize()
+        fps_s.append(time.perf_counter() - t0)
+        return idx
+
+    out = {"runs": [], "mesh": mesh.describe(),
+           "rows": {k: list(v.shape) for k, v in local.items()}}
+    backbone.farthest_point_sample = timed_fps
+    try:
+        for run in range(2):
+            model = task.build_module(cfg, device=mesh.device)
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+            opt = make_optimizer(cfg.optimizer, model.parameters())
+            fps_s.clear()
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            fps.fps.launches = knn.knn_select.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals = step(model, opt, local)
+            torch.cuda.synchronize()
+            out["runs"].append({
+                "s": time.perf_counter() - t0, "fps_s": sum(fps_s),
+                "losses": {k: float(v) for k, v in vals.items()},
+                "launches": {"fps": fps.fps.launches, "knn_select": knn.knn_select.launches},
+                "digest": _digest(model),
+                "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30})
+            if run == 0 and mesh.rank == 0:
+                out["state1"] = _state_np(model)
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        backbone.farthest_point_sample = inner
+    return out
+
+
+def phase_point_sharded_train(dev, work: Path) -> tuple[dict, dict]:
+    """Phase 16, the point-sharded training step on the card
+    (``parallel/sharded_train.py``): the pointtransformer preset at full
+    width (planes 32-512, nsample 36/24/24/24/24, blocks 2/3/4/6/3) from
+    the seeded flax-like initial weights, batch 1 on phase 10's first
+    24000-point case, its point axis split over ``PS_RANKS`` ranks sharing
+    the card over gloo (24000 -> 6000 -> 1500 -> 375 -> 93 points, shards
+    of 12000 ... 46 / 47 rows), against the dense one-process step on the
+    card from the same weights: step 1's losses, BatchNorm running
+    statistics and parameters within the tolerances derived above, beside
+    the control (the dense step on the cloud twice, batch 2) and the dense
+    step's own update; two sharded steps from one state bit-identical; every
+    rank's digest equal; K1 and K2 launched a rank as often as in the
+    dense step; seconds a step, the FPS's share, peak memory a rank.
+    Returns a rank's launches a step and the phase's summary."""
+    from toothgroupnetwork_tpu_torch.data import DentalScanDataset
+    from toothgroupnetwork_tpu_torch.models import get_task
+    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
+    from toothgroupnetwork_tpu_torch.parallel import RankPool
+    from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
+
+    t_phase = time.perf_counter()
+    item = DentalScanDataset(str(work / "train_data"))[0]
+    batch = {k: item[k][None] for k in ("feat", "gt_seg_label", "mask")}
+    task = get_task("pointtransformer")
+    cfg = task.default_config()
+    model = task.build_module(cfg, device="cpu")
+    init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
+    state = _state_np(model)
+
+    def dense_step(b: dict) -> dict:
+        model = task.build_module(cfg, device=dev)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        opt = make_optimizer(cfg.optimizer, model.parameters())
+        on_card = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        fps.fps.launches = knn.knn_select.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = train_step(model, opt, task, cfg, on_card)
+        torch.cuda.synchronize()
+        out = {"s": time.perf_counter() - t0,
+               "losses": {k: float(v) for k, v in vals.items()},
+               "launches": {"fps": fps.fps.launches, "knn_select": knn.knn_select.launches},
+               "state1": _state_np(model)}
+        del model, opt
+        torch.cuda.empty_cache()
+        return out
+
+    dense = dense_step(batch)
+    control = dense_step({k: np.concatenate([v, v]) for k, v in batch.items()})
+
+    with RankPool(PS_RANKS, "cuda") as pool:
+        t0 = time.perf_counter()
+        ranks = pool.run(point_sharded_steps, batch, state)
+        pool_s = time.perf_counter() - t0
+
+    runs = [r["runs"] for r in ranks]
+    want = dense["state1"]
+    stats = [k for k in want if k.endswith((".mean", ".var"))]
+    params = [k for k in want if k not in stats]
+    largest = max(float(np.abs(want[k]).max()) for k in params)
+    update = {k: want[k] - state[k] for k in params}
+    max_update = max(float(np.abs(u).max()) for u in update.values())
+
+    def vs_dense(got: dict, losses: dict, held: list) -> dict:
+        """Where ``got`` (a state after step 1) and ``losses`` part from
+        the dense step's, the statistics ``held`` against the tolerance."""
+        over = {k: float((np.abs(got[k] - want[k])
+                          / (PS_STAT_ATOL + PS_STAT_RTOL * np.abs(want[k]))).max())
+                for k in held}
+        diff = {k: float(np.abs(got[k] - want[k]).max()) for k in params}
+        return {"loss_rel_diff": {k: abs(v - dense["losses"][k])
+                                  / max(abs(dense["losses"][k]), 1e-12)
+                                  for k, v in losses.items()},
+                "stat_max_abs_diff": max(float(np.abs(got[k] - want[k]).max())
+                                         for k in held),
+                "stat_diff_over_tol": max(over.values()),
+                "worst_stats": dict(sorted(over.items(), key=lambda kv: -kv[1])[:3]),
+                "param_max_diff": max(diff.values()),
+                "param_diff_over_largest": max(diff.values()) / largest,
+                "param_l2_over_update": float(
+                    np.sqrt(sum(np.sum((got[k] - want[k]) ** 2) for k in params))
+                    / np.sqrt(sum(np.sum(u ** 2) for u in update.values()))),
+                "worst_params": dict(sorted(diff.items(), key=lambda kv: -kv[1])[:3])}
+
+    sharded = vs_dense(ranks[0]["state1"], runs[0][0]["losses"], stats)
+    ctrl = vs_dense(control["state1"], control["losses"],
+                    [k for k in stats if k.endswith(".mean")])
+    repeat = all(r[0]["digest"] == r[1]["digest"] for r in runs)
+    same = all(r[i]["digest"] == runs[0][i]["digest"] for r in runs for i in (0, 1))
+    launches = [[x["launches"] for x in r] for r in runs]
+    expect = dense["launches"]
+    summary = {
+        "what": "pointtransformer full width, batch 1, 24000 points point-sharded on "
+                f"{PS_RANKS} ranks sharing the card vs the dense step",
+        "sharded_vs_dense": {k: v for k, v in sharded.items() if not k.startswith("worst")},
+        "control_vs_dense": {k: v for k, v in ctrl.items() if not k.startswith("worst")},
+        "param_largest": largest, "max_update": max_update,
+        "max_update_over_largest": max_update / largest,
+        "repeat_identical": repeat, "ranks_identical": same,
+        "launches_per_rank_step": launches, "dense_launches": expect,
+        "step_s": [[x["s"] for x in r] for r in runs],
+        "fps_share": [[x["fps_s"] / x["s"] for x in r] for r in runs],
+        "rank_peak_gib": [[x["peak_gib"] for x in r] for r in runs],
+        "dense_step_s": dense["s"], "control_step_s": control["s"]}
+    log("point_sharded_train", **summary, mesh=ranks[0]["mesh"],
+        rows=[r["rows"] for r in ranks], sharded_worst=sharded, control_worst=ctrl,
+        fps_s=[[x["fps_s"] for x in r] for r in runs], losses=runs[0][0]["losses"],
+        dense_losses=dense["losses"], pool_run_s=pool_s,
+        seconds=time.perf_counter() - t_phase)
+    finite = all(np.isfinite(v) for r in runs for x in r for v in x["losses"].values())
+    if not finite:
+        raise AssertionError(f"point-sharded losses not finite: {runs}")
+    if any(x["losses"] != runs[0][0]["losses"] for r in runs for x in r):
+        raise AssertionError("point-sharded ranks or runs report other losses")
+    for what, got in (("point-sharded", sharded), ("control", ctrl)):
+        if (max(got["loss_rel_diff"].values()) > PS_LOSS_RTOL
+                or got["stat_diff_over_tol"] > 1.0
+                or got["param_max_diff"] > PS_PARAM_TOL * largest
+                or got["param_l2_over_update"] > PS_L2_TOL):
+            raise AssertionError(f"{what} state vs the dense step: {got}")
+    if PS_PARAM_TOL * largest > PS_UPDATE_SHARE * max_update:
+        raise AssertionError(f"the parameter bound {PS_PARAM_TOL * largest} is not under "
+                             f"{PS_UPDATE_SHARE} of the dense step's update {max_update}")
+    if not (repeat and same):
+        raise AssertionError(f"point-sharded steps not bit-identical: repeat {repeat}, "
+                             f"ranks {same}")
+    if any(x != expect for r in launches for x in r):
+        raise AssertionError(f"point-sharded launches {launches} != {expect}")
+    return {"point_sharded_train_launches_per_rank_step": launches[0][0]}, summary
+
+
 def short(kernel_name: str) -> str:
     """A device kernel's name without namespaces and arguments, template
     arguments kept (the two attention entries differ only there)."""
@@ -3131,7 +3397,25 @@ def short(kernel_name: str) -> str:
     return name.split("(")[0][:72]
 
 
+def parallel_only(dev, smi: str) -> int:
+    """``--parallel``: phases 14-16 alone, on phase 10's data."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = Path(tmp)
+        write_train_data(work)
+        phase_parallel(dev, work)
+        _, summary = phase_point_sharded_train(dev, work)
+    log("point_sharded_train_summary", **summary)
+    print(smi)
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--parallel", action="store_true",
+                        help="run phases 1-3 and 14-16 only (no kernels or ok line)")
+    args = parser.parse_args()
     # before the first cuBLAS call: deterministic training steps need a
     # fixed cuBLAS workspace (the size torch picks on Hopper anyway)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3165,6 +3449,8 @@ def main() -> int:
     log("build", **build.build_info)
 
     records = phase_kernels(dev, np.random.default_rng(0))
+    if args.parallel:
+        return parallel_only(dev, smi)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
@@ -3226,6 +3512,8 @@ def main() -> int:
         family_train = phase_family_train(dev, work,
                                           work / "families_scan" / scans[1].name)
         parallel = phase_parallel(dev, work)
+        ps_launches, ps_summary = phase_point_sharded_train(dev, work)
+        parallel.update(ps_launches)
 
     # each kernel's count from the run of its own path: K1-K3 from the
     # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
@@ -3252,8 +3540,9 @@ def main() -> int:
         # the device boundary route (phase 7b): a scan's launches
         rec.entry["device_boundary_launches_per_scan"] = {
             config: seen.get(name, 0) for config, seen in boundary.items()}
-        # the parallel layer (phases 14-15): a rank's launches in a
-        # data-parallel tgnet_fps step and in the point-sharded forward
+        # the parallel layer (phases 14-16): a rank's launches in a
+        # data-parallel tgnet_fps step, in the point-sharded forward and in
+        # the point-sharded pointtransformer step
         for key, seen in parallel.items():
             rec.entry[key] = seen.get(name, 0)
     # each K3 shape with its launches a scan, per configuration
@@ -3261,6 +3550,7 @@ def main() -> int:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)
                                     for what, seen in SCAN_K3_SHAPES.items()}
     print(json.dumps({"kernels": [r.entry for r in records]}))
+    log("point_sharded_train_summary", **ps_summary)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,15 @@ jittered JAX variables.
 The two packages round to bf16 at the same places: the train-mode
 BatchNorm and attention layer alone, fed the same bf16 input, give the same
 bits (held below; the attention's softmax is computed step by step as the
-JAX graph computes it, which a fused softmax did not).
+JAX graph computes it, which a fused softmax did not). The BatchNorm's
+float32 statistics are sums in an order that follows the SIMD width of the
+host's CPU kernels, so where its float32 output lies within that rounding
+of a bf16 rounding boundary the two packages round it to neighbouring bf16
+values: one element of 9600 did on an AVX-512 host. Such an element may
+differ by one bf16 ulp, and only where the exact (float64) output lies
+within the two packages' float32 errors of the boundary between them, with
+the port's float32 output and statistics no farther from float64 than
+twice JAX's (``assert_bits_or_rounding``).
 
 The tolerance, from a bf16 ulp (2^-8 relative; a rounding moves a value by
 at most half of it).
@@ -35,7 +43,13 @@ steps by up to 5.8e-2 (measured when this test was written). Held:
   * every parameter and statistic is float32;
   * the loss curve of 25 steps: the analog of the JAX ``TestBf16Training``
     (both curves fall below 0.6 of their first loss, and the bf16 curve ends
-    within 0.15 of the float32 one, relative).
+    within 0.15 of the float32 one, relative), at SGD lr 0.01. At the
+    preset's 0.1 this batch of one 256-point cloud is past the step's
+    stability edge (the trajectory rule of the other step tests): the
+    float32 curve alone ended at 3.93 with ATen's AVX-512 kernels and at
+    3.40 with its AVX2 ones (``_curve("float32", lr=0.1)`` under
+    ``ATEN_CPU_CAPABILITY``), 15 % apart from the rounding of its sums
+    alone, so the 0.15 gap to bf16 measured the dispatch, not bf16.
 """
 
 import re
@@ -115,7 +129,74 @@ def test_train_layers_bit_equal(rng, layer):
     with torch.no_grad():
         got = port.train()(*port_args)
     assert got.dtype == torch.bfloat16
-    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    if layer == "attention":
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    else:
+        assert_bits_or_rounding(got, ref, vs, x, mask)
+
+
+def _float64_batchnorm(x, mask, scale, bias, eps=1e-5):
+    """The train-mode masked BatchNorm in float64: (output, mean, biased
+    variance)."""
+    w = mask[..., None].astype(np.float64)
+    n = w.sum()
+    mean = (x * w).sum(axis=(0, 1)) / n
+    var = (((x - mean) ** 2) * w).sum(axis=(0, 1)) / n
+    return (x - mean) / np.sqrt(var + eps) * scale + bias, mean, var
+
+
+def assert_bits_or_rounding(got, ref, vs, x, mask):
+    """The port's bf16 BatchNorm output ``got`` equal to JAX's ``ref``, but
+    where the two round a float32 output to neighbouring bf16 values. The
+    same layer in float32 in each package (the same bf16 input, the same
+    variables) gives the outputs before that rounding and the running
+    statistics; the float64 layer the exact ones. Held: each differing
+    element is one bf16 ulp apart, each package's bf16 output is its float32
+    output rounded, and the exact output lies within the two float32
+    outputs' errors of the boundary between the two bf16 values; the port's
+    float32 output and statistics are no farther from float64 than twice
+    JAX's."""
+    got = got.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    x32 = np.asarray(x, np.float32)
+    jax32, jstate = JaxBN().apply(vs, jnp.asarray(x32), jnp.asarray(mask), True,
+                                  mutable=["batch_stats"])
+    port = MaskedBatchNorm(16, device="cpu")
+    port.load_state_dict(from_jax_variables(_flat(vs)))
+    with torch.no_grad():
+        port32 = port.train()(torch.from_numpy(x32), torch.from_numpy(mask)).numpy()
+    jax32 = np.asarray(jax32)
+    p = vs["params"]
+    y64, mean64, var64 = _float64_batchnorm(x32.astype(np.float64), mask,
+                                            np.asarray(p["scale"], np.float64),
+                                            np.asarray(p["bias"], np.float64))
+    # the running statistics after the step, exact: 0.9 old + 0.1 batch
+    n = mask.sum()
+    old = vs["batch_stats"]
+    stats64 = {"mean": 0.9 * np.asarray(old["mean"], np.float64) + 0.1 * mean64,
+               "var": 0.9 * np.asarray(old["var"], np.float64)
+               + 0.1 * var64 * n / (n - 1)}
+    for name, exact in stats64.items():
+        port_err = np.abs(getattr(port, name).numpy() - exact).max()
+        jax_err = np.abs(np.asarray(jstate["batch_stats"][name], np.float64) - exact).max()
+        assert port_err <= 2 * jax_err, (name, port_err, jax_err)
+    port_err, jax_err = np.abs(port32 - y64), np.abs(jax32 - y64)
+    assert port_err.max() <= 2 * jax_err.max(), (port_err.max(), jax_err.max())
+    as_bf16 = lambda a: torch.tensor(a).bfloat16().float().numpy()  # noqa: E731
+    np.testing.assert_array_equal(as_bf16(port32), got)
+    np.testing.assert_array_equal(as_bf16(jax32), ref)
+    miss = got != ref
+    if not miss.any():
+        return
+    lo, hi = np.minimum(got, ref)[miss], np.maximum(got, ref)[miss]
+    # neighbours: one sign, bit patterns one apart
+    bits = lambda a: torch.tensor(a).bfloat16().view(torch.int16).numpy()  # noqa: E731
+    assert (np.sign(lo) == np.sign(hi)).all()
+    np.testing.assert_array_equal(np.abs(bits(hi).astype(np.int32) - bits(lo)), 1)
+    boundary = (lo.astype(np.float64) + hi) / 2
+    assert (np.abs(y64[miss] - boundary)
+            <= np.maximum(port_err[miss], jax_err[miss])).all(), (
+        y64[miss], boundary, port_err[miss], jax_err[miss])
 
 
 def _configs(dtype: str):
@@ -182,12 +263,13 @@ def test_one_step_matches_jax(variables):
         assert (port - f32_update).norm() < f32_update.norm(), stats
 
 
-def _curve(dtype: str, steps: int = 25) -> np.ndarray:
-    """The JAX TestBf16Training batch and preset (SGD lr 0.1, momentum 0.9)
-    on the port, from flax-like initial weights."""
+def _curve(dtype: str, steps: int = 25, lr: float = 0.01) -> np.ndarray:
+    """The JAX TestBf16Training batch and preset (SGD, momentum 0.9) on the
+    port at ``lr`` (the preset's is 0.1), from flax-like initial weights."""
     task = get_task("tgnet_fps")
     cfg = task.default_config()
     cfg.model_parameter.update(ARCH, dtype=dtype)
+    cfg.optimizer.lr = lr
     model = task.build_module(cfg, device="cpu")
     init_like_flax_(model, torch.Generator().manual_seed(0))
     opt = make_optimizer(cfg.optimizer, model.parameters())

@@ -20,7 +20,14 @@ parts:
     1.5e-2 of a tensor's largest away from their float64 value here, so
     lr times that must stay under the parameter tolerance: pointnet and
     pointnetpp run at 1e-4, dgcnn and pointtransformer at 0.01, as
-    tests/test_torch_port_train_step.py runs tgnet.
+    tests/test_torch_port_train_step.py runs tgnet. A tensor with an
+    element past that tolerance is held to the same steps of JAX in float64
+    instead (``assert_close_or_rounding``): the port no farther from it
+    than twice JAX's float32 steps are, in L2 norm. The BatchNorm running means sum a
+    few thousand products in an order that follows the SIMD width of the
+    host (XLA's and ATen's CPU kernels), so a mean near zero can miss the
+    absolute 1e-5 by its own rounding: on an AVX-512 host pointnet's
+    ``head.bn_0.mean`` did after step 3 (4 of 512 elements, up to 1.6e-5).
 
 The gradient's reference is the JAX function computed in float64 (x64
 enabled, variables and batch cast; its BatchNorms keep the float32 the
@@ -56,6 +63,7 @@ from test_torch_port_train_families import (LOSS_RTOL, TOL, _batch, _load, _modu
                                             _variables, shared_selection)
 from toothgroupnetwork_tpu.models import tsegnet as jax_tsegnet_mod
 from toothgroupnetwork_tpu.models.point_transformer import backbone as jax_pt_backbone
+from toothgroupnetwork_tpu.nn import layers as jax_layers
 from toothgroupnetwork_tpu.nn import set_abstraction as jax_sa
 from toothgroupnetwork_tpu.ops import interpolate as jax_interpolate
 from toothgroupnetwork_tpu.train.loss_meter import LossMap
@@ -162,6 +170,57 @@ class SharedMaxima:
         finally:
             jax_sa.jnp = before
         assert not pending
+
+
+class _Float64Jnp:
+    """``jnp`` with ``float32`` read as ``float64``: the JAX BatchNorm casts
+    its input and its statistics to ``jnp.float32`` (nn/layers.py), so under
+    this module object its sums run in float64 too (its output keeps the
+    float32 ``dtype`` the module fixes)."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def as_float64(tree):
+    """Every floating leaf of ``tree`` as a float64 JAX array (inside
+    ``float64_jax``)."""
+    return jax.tree_util.tree_map(
+        lambda a: (jnp.asarray(a, jnp.float64)
+                   if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating) else a), tree)
+
+
+@contextlib.contextmanager
+def float64_jax(monkeypatch):
+    """JAX with x64 on and its BatchNorm summing in float64
+    (``_Float64Jnp``), the selections (FPS, ball query, kNN) in float32 as
+    the float32 forward makes them (``float32_selections``), for the
+    block's calls only. Nothing of the JAX package changes on disk."""
+    with monkeypatch.context() as m, jax.enable_x64(True):
+        float32_selections(m)
+        m.setattr(jax_layers, "jnp", _Float64Jnp())
+        yield
+
+
+def assert_close_or_rounding(got, want, reference, err_msg="", rtol=1e-4, atol=1e-5):
+    """``got`` (the port, float32) within ``rtol``/``atol`` of ``want`` (JAX
+    in float32), or, where an element misses, the tensor no farther from
+    ``reference()`` (the same JAX computation in float64) than twice JAX's
+    float32 result is, in L2 norm over the tensor (as
+    tests/test_torch_port_train_bf16.py holds its bf16 update): the miss is
+    then the two packages' float32 rounding, not the port's arithmetic.
+    ``reference`` is called only on a miss."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if np.allclose(got, want, rtol=rtol, atol=atol):
+        return
+    ref = np.asarray(reference(), np.float64)
+    port_err, jax_err = np.linalg.norm(got - ref), np.linalg.norm(want - ref)
+    assert port_err <= 2 * jax_err, (
+        f"{err_msg}: past rtol {rtol} + atol {atol} of JAX (largest "
+        f"{np.abs(got - want).max():.3g}), and {port_err:.3g} from JAX in float64 "
+        f"against JAX float32's {jax_err:.3g}")
 
 
 def jax_loss_and_grad(jtask, jcfg, module, variables, batch):
@@ -292,14 +351,21 @@ STEP_CASES = [("pointnet", "sgd", 1e-4), ("pointnetpp", "sgd", 1e-4),
               ("dgcnn", "sgd", 1e-2), ("pointtransformer", "sgd", 1e-2)]
 
 
-def check_state(model, state, step) -> None:
-    """Every parameter and statistic of ``model`` within rtol 1e-4 + atol
-    1e-5 of JAX's ``state``."""
-    want = from_jax_variables(_flat({"params": state.params,
+def _variables_of(state) -> dict:
+    return from_jax_variables(_flat({"params": state.params,
                                      "batch_stats": state.batch_stats}))
+
+
+def check_state(model, state, step, reference=None) -> None:
+    """Every parameter and statistic of ``model`` within rtol 1e-4 + atol
+    1e-5 of JAX's ``state``, or, tensor by tensor, as near to
+    ``reference()`` (the port-named float64 state after the same steps) as
+    ``assert_close_or_rounding`` holds it."""
+    want = _variables_of(state)
     for key, val in [*model.named_parameters(), *model.named_buffers()]:
-        np.testing.assert_allclose(val.detach().numpy(), want[key].numpy(),
-                                   err_msg=f"step {step} {key}", **TOL)
+        assert_close_or_rounding(val.detach().numpy(), want[key].numpy(),
+                                 lambda key=key: reference()[key].numpy(),
+                                 err_msg=f"step {step} {key}", **TOL)
 
 
 @pytest.mark.parametrize("name,opt,lr", STEP_CASES)
@@ -321,6 +387,21 @@ def test_steps_match_jax(monkeypatch, name, opt, lr):
     model = _load(model, vs)
     optimizer = make_optimizer(pcfg.optimizer, model.parameters())
     tb = {k: _t(v) for k, v in b.items()}
+    float64_states: list = []
+
+    def reference(step):
+        """The port-named state after ``step`` JAX steps in float64 from the
+        same variables (``float64_jax``), computed on the first miss."""
+        if not float64_states:
+            with float64_jax(monkeypatch):
+                s64 = jax_state(module, jax_make_optimizer(jcfg.optimizer),
+                                as_float64(vs["params"]), as_float64(vs["batch_stats"]))
+                step64 = jax.jit(make_train_step(jtask, jcfg))
+                for _ in range(3):
+                    s64, _ = step64(s64, as_float64(db))
+                    float64_states.append(_variables_of(s64))
+        return float64_states[step - 1]
+
     for step in (1, 2, 3):
         state, jvals = jstep(state, db)
         pvals = train_step(model, optimizer, ptask, pcfg, tb)
@@ -328,4 +409,4 @@ def test_steps_match_jax(monkeypatch, name, opt, lr):
         for key, val in jvals.items():
             assert float(pvals[key]) == pytest.approx(float(val), rel=LOSS_RTOL), (step, key)
         if step != 2:
-            check_state(model, state, step)
+            check_state(model, state, step, lambda step=step: reference(step))

@@ -26,9 +26,10 @@ from synthetic import make_synthetic_jaw_points
 from test_torch_port_families import _flat, _t, assert_close, jax_init, randomize_variables
 from test_torch_port_train import _processed
 from test_torch_port_train_families_steps import (KINKED_NORM_RTOL, SharedMaxima,
+                                                  as_float64, assert_close_or_rounding,
                                                   check_adam_steps, check_gradients,
-                                                  float32_selections, jax_loss_and_grad,
-                                                  jax_state)
+                                                  float32_selections, float64_jax,
+                                                  jax_loss_and_grad, jax_state)
 from test_torch_port_tsegnet import fit_centroid_heads
 from toothgroupnetwork_tpu.losses import tsg_loss as jax_tsg
 from toothgroupnetwork_tpu.models import get_task as jax_get_task
@@ -407,7 +408,7 @@ def match_running_stats(variables, port, feat, mask):
     return jax.tree_util.tree_map_with_path(set_stats, variables)
 
 
-def test_steps_with_the_host_stage_match_jax(rng):
+def test_steps_with_the_host_stage_match_jax(monkeypatch, rng):
     """Three steps of JAX ``make_train_step`` at the Adam preset (lr 1e-4:
     at its 1e-3 the first step already scatters the fitted proposals), the
     host stage before each (the analog of tests/test_tsegnet.py's
@@ -415,7 +416,11 @@ def test_steps_with_the_host_stage_match_jax(rng):
     the port's host stage and ``train_step`` from the same variables: the
     proposals agree (validity equal, centres within 1e-5), the six losses
     within 1e-4 relative, the mutated statistics within rtol 1e-4 + atol
-    1e-5. (The step's gradient: ``test_step_one_gradients_match_jax``;
+    1e-5, or, for a statistic with an element past that, no farther from
+    the same JAX step in float64 than twice JAX's float32 step is
+    (``assert_close_or_rounding``: on an AVX-512 host step 2's
+    ``seg_module.flatten_sa.mlp.bn_0.mean`` missed by 1.95e-5 in 1 of 256
+    elements, a masked mean's sum in another order). (The step's gradient: ``test_step_one_gradients_match_jax``;
     the preset's update: ``test_adam_preset_steps_match_optax``.) The
     centroid module starts with this batch's statistics as running
     statistics (``match_running_stats``: fitted in eval mode, its heads
@@ -449,6 +454,22 @@ def test_steps_with_the_host_stage_match_jax(rng):
         np.testing.assert_allclose(pextra["center_points"][live],
                                    extra["center_points"][live], rtol=0, atol=1e-5)
         jb = {**b, **extra}
+        before, float64_stats = state, {}
+
+        def reference(key, before=before, jb=jb, float64_stats=float64_stats):
+            """The statistics after this step taken by JAX in float64 from
+            the same state and proposals, computed on the first miss."""
+            if not float64_stats:
+                with float64_jax(monkeypatch):
+                    s64 = jax_state(module, jax_make_optimizer(jcfg.optimizer),
+                                    as_float64(before.params),
+                                    as_float64(before.batch_stats))
+                    s64, _ = jax.jit(make_train_step(jtask, jcfg))(
+                        s64, as_float64({k: jnp.asarray(v) for k, v in jb.items()}))
+                    float64_stats.update(from_jax_variables(
+                        _flat({"batch_stats": s64.batch_stats})))
+            return float64_stats[key].numpy()
+
         state, jvals = jstep(state, {k: jnp.asarray(v) for k, v in jb.items()})
         pvals = train_step(model, optimizer, ptask, pcfg,
                            {k: _t(np.asarray(v)) for k, v in jb.items()})
@@ -459,8 +480,9 @@ def test_steps_with_the_host_stage_match_jax(rng):
             assert float(pvals[key]) == pytest.approx(float(val), rel=1e-4), (step, key)
         want = from_jax_variables(_flat({"batch_stats": state.batch_stats}))
         for key, buf in model.named_buffers():
-            np.testing.assert_allclose(buf.numpy(), want[key].numpy(),
-                                       err_msg=f"step {step} {key}", rtol=1e-4, atol=1e-5)
+            assert_close_or_rounding(buf.numpy(), want[key].numpy(),
+                                     lambda key=key, ref=reference: ref(key),
+                                     err_msg=f"step {step} {key}", rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------- CLI

@@ -66,17 +66,6 @@ def ring_knn_job(mesh, d, query, points, k):
     return _np(idx), _np(dist)
 
 
-def ring_knn_k_cap_job(mesh, d, n, k):
-    m = sub(mesh, d)
-    if m is None:
-        return None
-    try:
-        ring_knn(torch.zeros(n // d, 3), torch.zeros(n // d, 3), k, m)
-    except ValueError as e:
-        return str(e)
-    return "no error"
-
-
 def sharded_fps_job(mesh, d, xyz, n, mask):
     m = sub(mesh, d)
     if m is None:
@@ -186,9 +175,10 @@ def _trainer(name, mp, d, mesh, batches, state, lr):
     return trainer
 
 
-def _snapshot(trainer, stats) -> dict:
+def _snapshot(trainer_or_model, stats) -> dict:
+    model = getattr(trainer_or_model, "model", trainer_or_model)
     return {"stats": stats,
-            "state": {k: _np(v).copy() for k, v in trainer.model.state_dict().items()}}
+            "state": {k: _np(v).copy() for k, v in model.state_dict().items()}}
 
 
 def data_parallel_job(mesh, d, name, mp, batches, state=None, lr=1e-4, step=0):
@@ -291,3 +281,83 @@ def trainer_retry_job(mesh, d, name, mp, data_dir, ckpt, fail_rank):
     trainer.run(max_epochs=2)
     state = b"".join(_np(v).tobytes() for v in trainer.model.state_dict().values())
     return trainer.epoch, trainer.step, state, logs
+
+
+# ------------------------------------------------------------ point-sharded training
+
+def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01):
+    """One step of the point-sharded ``pointtransformer`` step (SGD,
+    momentum 0.9, ``lr``) over the mesh of ``d`` ranks from ``state``, each
+    rank on its rows of ``batch``; on rank 0 also the dense one-process
+    step. Returns (this rank's snapshot, rank 0's dense one)."""
+    from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
+        make_point_sharded_train_step, shard_batch_points)
+    from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    task = get_task("pointtransformer")
+    cfg = task.default_config()
+    cfg.model_parameter.update(mp)
+    cfg.optimizer.lr, cfg.optimizer.momentum = lr, 0.9
+
+    def run(sharded):
+        model = task.build_module(cfg, device="cpu")
+        model.load_state_dict({k: _t(v) for k, v in state.items()})
+        opt = make_optimizer(cfg.optimizer, model.parameters())
+        if sharded:
+            values = make_point_sharded_train_step(task, cfg, m)(
+                model, opt, shard_batch_points(batch, m))
+        else:
+            values = train_step(model, opt, task, cfg, {k: _t(v) for k, v in batch.items()})
+        return _snapshot(model, {f"{k}_train": float(v) for k, v in values.items()})
+
+    got = run(True)
+    return got, (run(False) if m.rank == 0 else None)
+
+
+def _rows(a, m, axis=1):
+    """This rank's rows of ``a``'s point axis ``axis`` (``points.rows``)."""
+    from toothgroupnetwork_tpu_torch.parallel import points
+
+    lo, hi = points.rows(a.shape[axis], m)
+    return _t(np.take(a, np.arange(lo, hi), axis=axis))
+
+
+def ring_gather_grad_job(mesh, d, x, idx, w):
+    """``ring_gather`` of this rank's rows of ``idx`` ``[B, M, K]`` (global
+    indices) from its rows of ``x`` ``[B, N, C]``, and the gradient of the
+    sum of the rows weighted by its rows of ``w``, twice."""
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    xl = _rows(x, m).requires_grad_(True)
+    il, wl = _rows(idx, m), _rows(w, m)
+    out, grads = None, []
+    for _ in range(2):
+        xl.grad = None
+        out = ring_gather(xl, il, m, x.shape[1])
+        (out * wl).sum().backward()
+        grads.append(_np(xl.grad).copy())
+    return {"out": _np(out), "grad": grads[0], "again": grads[1]}
+
+
+def ring_knn_context_job(mesh, d, xyz, q, mask, k):
+    """``ring_knn`` of this rank's query rows of the first cloud, and inside
+    the point-sharded context ``knn_self``, ``knn_points`` (re-scored) and
+    ``farthest_point_sample`` (n // 4) on this rank's rows of both clouds."""
+    from toothgroupnetwork_tpu_torch.ops import farthest_point_sample, knn_points, knn_self
+    from toothgroupnetwork_tpu_torch.parallel import points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    n = xyz.shape[1]
+    p, qq, mk = _rows(xyz, m), _rows(q, m), _rows(mask, m)
+    out = {"ring": tuple(_np(t) for t in ring_knn(qq[0], p[0], k, m, mask=mk[0], n=n))}
+    with points.context(m, n):
+        out["self"] = tuple(_np(t) for t in knn_self(p, k, mk))
+        out["rescored"] = tuple(_np(t) for t in knn_points(qq, p, k, None, mk))
+        out["fps"] = _np(farthest_point_sample(p, n // 4, mk))
+    return out

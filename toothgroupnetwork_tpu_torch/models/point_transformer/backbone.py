@@ -54,6 +54,7 @@ from ...ops.kernels.attention import (fold_attention_params,
                                       fused_vector_attention_packed_x,
                                       prepare_layouts)
 from ...ops.kernels.cell_select import cell_select_p, cell_select_x
+from ...parallel import points as point_shards
 
 # guards every layer's folded parameters (PointTransformerLayer.kernel_params)
 _FOLD_LOCK = threading.Lock()
@@ -199,12 +200,13 @@ class TransitionDown(nn.Module):
     def forward(self, p, x, mask=None):
         if self.stride == 1:
             return p, torch.relu(self.bn(self.linear(x), mask)), mask
-        m = x.shape[1] // self.stride
+        # the cloud's size, not a point shard's (parallel/points.py)
+        m = point_shards.global_size(x.shape[1]) // self.stride
         fps_idx = farthest_point_sample(p, m, mask)
         new_p = index_points(p, fps_idx)
         new_mask = None
         if mask is not None:
-            new_mask = torch.gather(mask, 1, fps_idx.long())
+            new_mask = index_points(mask[..., None], fps_idx)[..., 0]
         idx, _ = knn_points(new_p, p, self.nsample, new_mask, mask,
                             need_dist=False)
         # float32 positions beside model-dtype features: the concat is
@@ -284,7 +286,7 @@ class MultiHead(nn.Module):
         for i, (x, mask) in enumerate(zip(stage_x, masks)):
             lat = getattr(self, f"stage_{i}")(x, mask)
             latents.append(lat)
-            collect.append(lat if i == 0 else index_points(lat, up1_idx[i]))
+            collect.append(lat if up1_idx[i] is None else index_points(lat, up1_idx[i]))
         return self.cls(torch.cat(collect, dim=-1)), latents
 
 
@@ -432,12 +434,12 @@ class PointTransformerSeg(nn.Module):
 
         # 1-NN upsample indices shared by both heads; a stage that kept the
         # full-resolution points (all strides so far 1) maps by identity
+        # (None: no gather)
         p0, m0 = stages[0]["p"], stages[0]["mask"]
         up1_idx = [None]
         for i in range(1, bn):
             if stages[i]["p"] is p0:
-                up1_idx.append(torch.arange(p0.shape[1], device=p0.device)
-                               .expand(p0.shape[0], -1))
+                up1_idx.append(None)
             else:
                 idx, _ = knn_points(p0, stages[i]["p"], 1, m0, stages[i]["mask"],
                                     need_dist=False)

@@ -11,12 +11,14 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..parallel import data_parallel
+from ..parallel import points as point_shards
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Max over ``dim`` with invalid positions held at -1e30 (so a fully
     masked row gives -1e30, as in the JAX package); ``mask`` has ``x``'s
-    shape without the channel axis."""
+    shape without the channel axis. No point-sharded route yet."""
+    point_shards.unsupported("masked_max over the point axis")
     if mask is None:
         return x.amax(dim=dim)
     return torch.where(mask.to(torch.bool)[..., None], x,
@@ -25,7 +27,16 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Te
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Mean over ``dim`` with invalid positions excluded; ``mask`` has ``x``'s
-    shape without the channel axis."""
+    shape without the channel axis. Inside the point-sharded context
+    (``dim`` 1, the point axis) the masked sum and count are summed over
+    the shards in one differentiable all-reduce."""
+    if point_shards.active() is not None:
+        if dim != 1:
+            point_shards.unsupported(f"masked_mean over axis {dim}")
+        w = (torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if mask is None
+             else mask.to(x.dtype))[..., None]
+        s = point_shards.psum(torch.cat([(x * w).sum(dim=1), w.sum(dim=1)], dim=-1))
+        return s[..., :-1] / torch.clamp_min(s[..., -1:], 1.0)
     if mask is None:
         return x.mean(dim=dim)
     w = mask[..., None].to(x.dtype)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import points as point_shards
 from .distance import square_distance
 
 _BIG = 1e10
@@ -27,6 +28,7 @@ def ball_query(radius: float, k: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
     """xyz ``[N, 3]``/``[B, N, 3]`` points, new_xyz ``[S, 3]``/``[B, S, 3]``
     centres, optional bool ``p_mask`` over xyz -> int32 ``[..., S, k]``
     indices into the N axis."""
+    point_shards.unsupported("ball_query")
     if xyz.dim() == 2:
         return ball_query(radius, k, xyz[None], new_xyz[None],
                           None if p_mask is None else p_mask[None], chunk=chunk)[0]

@@ -6,12 +6,23 @@ import os
 
 import torch
 
+from ..parallel import points as point_shards
 from .kernels.gather import onehot_gather
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``points[..., idx, :]``: points ``[B, N, C]`` (or ``[N, C]``), integer
-    idx ``[B, ...]`` (or ``[...]``) into the N axis -> ``idx.shape + (C,)``."""
+    idx ``[B, ...]`` (or ``[...]``) into the N axis -> ``idx.shape + (C,)``.
+    Inside the point-sharded context ``points`` is this rank's rows of a
+    cloud, ``idx`` global indices, and the rows come over the ring
+    (``parallel/sharded_ops.py:ring_gather``, with its gradient)."""
+    mesh = point_shards.active()
+    if mesh is not None:
+        from ..parallel.sharded_ops import ring_gather
+
+        if points.dim() != 3:
+            point_shards.unsupported("index_points on an unbatched cloud")
+        return ring_gather(points, idx, mesh, point_shards.global_size(points.shape[1]))
     c = points.shape[-1]
     if points.dim() == 2:
         return points[idx.reshape(-1).long()].reshape(idx.shape + (c,))

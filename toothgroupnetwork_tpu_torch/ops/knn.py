@@ -1,12 +1,17 @@
 """k-nearest neighbours (counterpart of toothgroupnetwork_tpu/ops/knn.py,
 its exact route): the selection runs through K2 (``kernels/knn.py``); the
 self-first dedup and the exact re-score are plain torch, as they are XLA
-around the Pallas kernel in the JAX package."""
+around the Pallas kernel in the JAX package. Inside the point-sharded
+context (``parallel/points.py``) K2 selects for this rank's query rows
+over the whole cloud, its coordinates and bias all-gathered once
+(``parallel/ring.py:sharded_select``), and the rest runs as here, with
+global indices."""
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import points as point_shards
 from .distance import _dot_fixed
 from .gather import index_points
 from .kernels.knn import knn_select, smallest_k
@@ -41,18 +46,30 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, k: int,
         p_mask = None if p_mask is None else p_mask[None]
     query = query.to(torch.float32).contiguous()
     points = points.to(torch.float32).contiguous()
-    b, m, _ = query.shape
+    b, m, c = query.shape
     n = points.shape[1]
     bias = None
     if p_mask is not None:
         bias = torch.where(p_mask.to(torch.bool), 0.0, _BIG).to(
             torch.float32).contiguous()
-    idx, d2 = knn_select(query, points, k, bias)
+    mesh = point_shards.active()
+    q_base = 0
+    if mesh is None:
+        idx, d2 = knn_select(query, points, k, bias)
+    else:
+        from ..parallel.ring import sharded_select
+
+        if c != 3:
+            point_shards.unsupported(f"knn_points in a {c}-channel feature space")
+        n = point_shards.global_size(n)
+        if include_self:
+            q_base = point_shards.rows(point_shards.global_size(m), mesh)[0]
+        idx, d2 = sharded_select(query, points, k, mesh, n, bias)
     keff = min(k, n)
 
     dup = None
     if include_self:
-        qi = torch.clamp(torch.arange(m, device=idx.device), max=n - 1)
+        qi = torch.clamp(torch.arange(q_base, q_base + m, device=idx.device), max=n - 1)
         self_col = qi.to(torch.int32)[None, :, None].expand(b, m, 1)
         dup = idx == self_col
         idx = torch.cat([self_col, idx], dim=-1)

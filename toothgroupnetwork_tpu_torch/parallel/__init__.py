@@ -3,14 +3,18 @@ toothgroupnetwork_tpu/parallel/): the process group and rank pool
 (``distributed.py``), the rank mesh, sharding helpers and collectives
 (``mesh.py``), data-parallel training with global statistics
 (``data_parallel.py``, read by the ``Trainer``, the BatchNorm, Dropout and
-the losses), and the point-sharded eval path: ring kNN through K2
-(``ring.py``), sharded FPS and the ring gather (``sharded_ops.py``) and the
-point-sharded backbone forward with K6 (``sharded_backbone.py``).
+the losses), the point-sharded eval path: kNN through K2 over the
+gathered coordinates (``ring.py``), sharded FPS and the ring gather
+(``sharded_ops.py``) and the point-sharded backbone forward with K6
+(``sharded_backbone.py``), and the
+point-sharded train step (``sharded_train.py``) on the context that routes
+the dense point-axis ops over the shards (``points.py``).
 
 The package re-exports the process-group and mesh layer only. The
 point-sharded functions are imported from their own modules
-(``parallel.ring``, ``parallel.sharded_ops``, ``parallel.sharded_backbone``):
-they import the model code, which imports ``parallel.data_parallel``.
+(``parallel.points``, ``parallel.ring``, ``parallel.sharded_ops``,
+``parallel.sharded_backbone``, ``parallel.sharded_train``): they import the
+model code, which imports ``parallel.data_parallel`` and ``parallel.points``.
 """
 
 from .distributed import (RankPool, backend_for, init_rank, local_batch_slice,

@@ -9,8 +9,9 @@ device and the axis name, and the functions below take it.
 Data parallelism shards the batch's leading axis (:func:`shard_batch`) and
 keeps the parameters equal on every rank (:func:`replicate`). Point-axis
 sharding gives each rank ``N/D`` rows of a cloud (:func:`shard_rows`); the
-point-sharded primitives (``ring.py``, ``sharded_ops.py``) exchange shards
-around the ring (:func:`ring_pass`).
+point-sharded primitives (``ring.py``, ``sharded_ops.py``) all-gather
+coordinates (:func:`all_gather`) and pass feature shards around the ring
+(:func:`ring_pass`).
 
 gloo takes CUDA tensors for ``all_reduce`` and ``broadcast`` only, so those
 are called on the tensors as they are. Under gloo with ranks on a card,
@@ -95,17 +96,18 @@ def all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _staged(t, mesh, op)
 
 
-def ring_pass(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """One ring step: ``t`` goes to rank + 1, and rank - 1's ``t`` (same
-    shape and dtype) comes back, as ``lax.ppermute`` with ``i -> i + 1``."""
+def ring_pass(t: torch.Tensor, mesh: Mesh, shift: int = 1) -> torch.Tensor:
+    """One ring step: ``t`` goes to rank + ``shift``, and rank - ``shift``'s
+    ``t`` (same shape and dtype) comes back, as ``lax.ppermute`` with
+    ``i -> i + 1`` (``shift`` -1: the ring run backwards)."""
     if mesh.size == 1:
         return t
 
     def op(x):
         got = torch.empty_like(x)
-        ops = [dist.P2POp(dist.isend, x, _global(mesh, (mesh.rank + 1) % mesh.size),
+        ops = [dist.P2POp(dist.isend, x, _global(mesh, (mesh.rank + shift) % mesh.size),
                           mesh.group),
-               dist.P2POp(dist.irecv, got, _global(mesh, (mesh.rank - 1) % mesh.size),
+               dist.P2POp(dist.irecv, got, _global(mesh, (mesh.rank - shift) % mesh.size),
                           mesh.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()

@@ -1,0 +1,134 @@
+"""The point-sharded context: what makes the dense forward run with its
+point axis split over the ranks of a mesh (what GSPMD does for
+toothgroupnetwork_tpu/parallel/sharded_train.py, written out by hand).
+
+Inside :func:`context` every tensor with a point axis (axis 1 of
+``[B, N, ...]``) holds this rank's rows of it, rank r rows
+``[r N // D, (r + 1) N // D)`` (:func:`bounds`), at every stage; point
+indices are global. The dense point-axis ops consult :func:`active` and
+route themselves:
+
+  * ``ops.farthest_point_sample`` -> K1 on the whole cloud, all-gathered
+    once (``sharded_ops.gather_axis``), this rank's rows of the sample;
+  * ``ops.knn_points`` / ``knn_self`` -> K2 for this rank's query rows
+    against the whole cloud, all-gathered once, before their dense
+    post-processing (``ring.sharded_select``);
+  * ``ops.index_points`` on a point-sharded source ->
+    ``sharded_ops.ring_gather``, whose backward returns the rows' gradients
+    to their owners;
+  * ``nn.layers.masked_mean`` over the point axis -> :func:`psum` of the
+    masked sum and count.
+
+An op that the context does not route (``masked_max``, ``ball_query``,
+feature-space kNN) raises :func:`unsupported`, so no rank computes a
+per-shard answer in silence. Outside the context every hook is the
+identity.
+
+A shard knows its own row count only; the global count of each point axis
+is resolved from the sizes this step has met (:func:`register`: the batch's
+N, then each FPS sample's M), which every rank registers in the same order.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import TYPE_CHECKING
+
+import torch
+
+if TYPE_CHECKING:
+    from .mesh import Mesh
+
+# the queue of the point-sharded step's remaining work (ROADMAP.md, Queue 1)
+ROADMAP_ITEM = "ROADMAP.md Queue 1, the point-sharded training step's next items"
+
+
+class _Shards:
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.sizes: list[int] = []
+
+
+_ACTIVE: _Shards | None = None
+
+
+def bounds(n: int, d: int) -> list[int]:
+    """Rank r's rows of an ``n``-row point axis over ``d`` ranks are
+    ``[bounds[r], bounds[r + 1])``."""
+    return [r * n // d for r in range(d + 1)]
+
+
+def rows(n: int, mesh: Mesh) -> tuple[int, int]:
+    """(start, stop) of this rank's rows of an ``n``-row point axis."""
+    b = bounds(n, mesh.size)
+    return b[mesh.rank], b[mesh.rank + 1]
+
+
+@contextlib.contextmanager
+def context(mesh: Mesh, n_points: int):
+    """Run the code inside with the point axis of an ``n_points`` cloud
+    split over ``mesh`` (None: no split)."""
+    global _ACTIVE
+    before = _ACTIVE
+    _ACTIVE = None if mesh is None else _Shards(mesh)
+    try:
+        if mesh is not None:
+            register(n_points)
+        yield mesh
+    finally:
+        _ACTIVE = before
+
+
+def active() -> Mesh | None:
+    """The mesh the point axis is split over, or None."""
+    return None if _ACTIVE is None else _ACTIVE.mesh
+
+
+def register(n: int) -> None:
+    """Record ``n`` as a global point count of this step. Every rank
+    registers the same counts in the same order, and each must tell every
+    count apart by its own row count (raises otherwise, on every rank)."""
+    shards = _ACTIVE
+    d = shards.mesh.size
+    if n < d:
+        raise ValueError(f"a point axis of {n} rows over {d} ranks leaves a rank none")
+    if n in shards.sizes:
+        return
+    for other in shards.sizes:
+        for r in range(d):
+            if bounds(n, d)[r + 1] - bounds(n, d)[r] == (
+                    bounds(other, d)[r + 1] - bounds(other, d)[r]):
+                raise ValueError(f"point axes of {n} and {other} rows give rank {r} "
+                                 "the same row count; it cannot tell them apart")
+    shards.sizes.append(n)
+
+
+def global_size(n_local: int) -> int:
+    """The global row count of a point axis of which this rank holds
+    ``n_local`` rows (``n_local`` itself outside the context)."""
+    if _ACTIVE is None:
+        return n_local
+    mesh = _ACTIVE.mesh
+    for n in _ACTIVE.sizes:
+        lo, hi = rows(n, mesh)
+        if hi - lo == n_local:
+            return n
+    raise ValueError(f"no point axis of this step gives rank {mesh.rank} "
+                     f"{n_local} rows (registered: {_ACTIVE.sizes})")
+
+
+def psum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the point shards, differentiably (the identity
+    outside the context)."""
+    if _ACTIVE is None:
+        return t
+    from .data_parallel import _Psum
+
+    return _Psum.apply(t, _ACTIVE.mesh.group)
+
+
+def unsupported(op: str) -> None:
+    """Raise inside the context: ``op`` has no point-sharded route yet."""
+    if _ACTIVE is not None:
+        raise NotImplementedError(
+            f"{op} has no point-sharded route (see {ROADMAP_ITEM})")

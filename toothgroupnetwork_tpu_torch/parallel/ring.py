@@ -1,13 +1,18 @@
-"""Ring-pass point-axis sharding: exact kNN with the query and point axes
-sharded over the ranks (counterpart of toothgroupnetwork_tpu/parallel/ring.py).
+"""Point-axis-sharded exact kNN (counterpart of
+toothgroupnetwork_tpu/parallel/ring.py).
 
-Each rank holds ``N/D`` points. The point shards travel around the ring
-(:func:`~.mesh.ring_pass`: to rank + 1, from rank - 1, as ``ppermute``), so
-each rank's query rows meet every shard while it holds one shard at a time.
-The local step is K2 (``ops/kernels/knn.py:knn_select``) on the resident
-shard; its list is merged with the running one by the key (d², global
-index). The keys are unique, so the merge is exact in any order of the
-shards.
+Rank r holds rows ``[r N // D, (r + 1) N // D)`` of the cloud
+(``points.bounds``: equal shards where D divides N). The JAX version
+passes the point shards round a ``ppermute`` ring because its local step
+materialises the ``[Mq, N/D]`` distances. K2 (``ops/kernels/knn.py:
+knn_select``) selects inside the kernel and never holds them, so a ring
+would save only the coordinates, 12 bytes a point: here the shards'
+coordinates and candidate bias are all-gathered once
+(``sharded_ops.gather_axis``) and K2 runs this rank's query rows against
+the whole cloud in one launch (:func:`sharded_select`, which the dense
+``ops.knn_points`` also calls inside the point-sharded context). Its
+indices are global and its lists those of the dense kNN: k may pass a
+shard's size, and past the whole cloud's the tail is index 0 at d² 1e10.
 
 K2 computes d² by direct subtraction, where the JAX local step expands the
 square through a matmul (ring.py:54-57): candidates within the expansion's
@@ -19,47 +24,40 @@ from __future__ import annotations
 import torch
 
 from ..ops.kernels.knn import knn_select
-from .mesh import Mesh, ring_pass
+from .mesh import Mesh
+from .sharded_ops import gather_axis
+
+_BIG = 1e10
 
 
-def merge_lists(best_d, best_i, new_d, new_i, k: int):
-    """The ``k`` smallest keys (d², global index) of two ``[M, k]`` lists,
-    ascending."""
-    cat_d = torch.cat([best_d, new_d], dim=-1)
-    cat_i = torch.cat([best_i, new_i], dim=-1)
-    order = torch.argsort(cat_i, dim=-1, stable=True)
-    cat_d, cat_i = cat_d.gather(-1, order), cat_i.gather(-1, order)
-    order = torch.argsort(cat_d, dim=-1, stable=True)[:, :k]
-    return cat_d.gather(-1, order), cat_i.gather(-1, order)
+def sharded_select(query: torch.Tensor, points: torch.Tensor, k: int, mesh: Mesh,
+                   n: int, bias: torch.Tensor | None = None):
+    """``knn_select`` of this rank's query rows ``[B, Mq, C]`` over the
+    ``n``-point cloud whose rows ``points`` ``[B, n_r, C]`` (and candidate
+    ``bias`` ``[B, n_r]``, added to their d²) this rank holds: (int32
+    global indices, f32 d²) ``[B, Mq, k]``, the dense kNN's lists."""
+    cloud = gather_axis(points.to(torch.float32), mesh, n).contiguous()
+    if bias is not None:
+        bias = gather_axis(bias.to(torch.float32), mesh, n).contiguous()
+    return knn_select(query.to(torch.float32).contiguous(), cloud, k, bias)
 
 
-def ring_knn(query: torch.Tensor, points: torch.Tensor, k: int,
-             mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+def ring_knn(query: torch.Tensor, points: torch.Tensor, k: int, mesh: Mesh,
+             mask: torch.Tensor | None = None,
+             n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of this rank's ``query`` rows ``[Mq, C]`` over the cloud
-    whose shard ``points`` ``[N/D, C]`` this rank holds (every rank's shard
-    the same size, rank r's rows ``r N/D ...``).
+    of ``n`` points whose rows ``points`` ``[n_r, C]`` this rank holds
+    (``n`` by default ``n_r`` times D: equal shards). ``mask`` ``[n_r]``
+    marks the valid candidates; an invalid one takes d² + 1e10, as in
+    ``knn_points``.
 
     Returns ``(idx int32, dist f32)`` ``[Mq, k]``: global point indices
     ascending by (d², index), and the exact Euclidean distances (sqrt of
-    the selection's d²), as the JAX ``ring_knn`` returns them. ``k`` must
-    not pass ``N/D``, so that every shard fills a list."""
-    shard_n = points.shape[0]
-    if k > shard_n:
-        raise ValueError(f"ring_knn needs k <= N/devices ({k} > {shard_n})")
-    q = query.to(torch.float32).contiguous()[None]
-    blk = points.to(torch.float32).contiguous()
-    best_d = best_i = None
-    for step in range(mesh.size):
-        owner = (mesh.rank - step) % mesh.size      # whose shard is resident
-        idx, d2 = knn_select(q, blk[None], k)
-        gi = idx[0].to(torch.int64) + owner * shard_n
-        if best_d is None:
-            best_d, best_i = d2[0], gi
-        else:
-            best_d, best_i = merge_lists(best_d, best_i, d2[0], gi, k)
-        if step + 1 < mesh.size:
-            blk = ring_pass(blk, mesh)
-    d2o = torch.clamp_min(best_d, 0.0)
+    the selection's d²), as the JAX ``ring_knn`` returns them."""
+    n = points.shape[0] * mesh.size if n is None else n
+    bias = None if mask is None else torch.where(mask.to(torch.bool), 0.0, _BIG)[None]
+    idx, d2 = sharded_select(query[None], points[None], k, mesh, n, bias)
+    d2o = torch.clamp_min(d2[0], 0.0)
     pos = d2o > 0
     dist = torch.where(pos, torch.sqrt(torch.where(pos, d2o, 1.0)), 0.0)
-    return best_i.to(torch.int32), dist
+    return idx[0], dist

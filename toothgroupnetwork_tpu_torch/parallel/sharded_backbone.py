@@ -2,20 +2,22 @@
 (counterpart of toothgroupnetwork_tpu/parallel/sharded_backbone.py).
 
 Every rank holds ``N/D`` points of one cloud from end to end: FPS with an
-all-gathered winner (``sharded_ops.sharded_fps``), kNN over the ring through
-K2 (``ring.ring_knn``), the neighbourhood gathers over the ring
-(``sharded_ops.ring_gather``), and the layers' local work on the rank's
-rows. The attention of a block after its ring gather is what K6 computes
+all-gathered winner (``sharded_ops.sharded_fps``), kNN through K2 over the
+all-gathered coordinates (``ring.ring_knn``), the neighbourhood gathers
+over the ring (``sharded_ops.ring_gather``), and the layers' local work on
+the rank's rows. The attention of a block after its ring gather is what K6 computes
 (``ops/kernels/attention.py:fused_vector_attention`` on the gathered rows,
 with the layer's ``fold_attention_params``), where the JAX file runs the
 XLA graph (``_attention_local``). The exchanges are the FPS steps' gathers,
-the ring passes and the bottleneck mean's all-reduce.
+each kNN's gather of the coordinates, the ring passes and the bottleneck
+mean's all-reduce.
 
 The parameters are read from the port's ``PointTransformerSeg``
 (``models/point_transformer/backbone.py``) by :func:`extract_backbone_params`,
 every eval BatchNorm folded to an affine pair (``fold_bn``). The forward
 takes a fully valid float32 cloud; N must divide by D times every
-cumulative stride product, and each stage's k must not pass its shard.
+cumulative stride product (a stage's k may pass its shard: ``ring_knn``
+selects over the whole cloud).
 """
 
 from __future__ import annotations
@@ -164,20 +166,16 @@ def sharded_encoder_stage(p, x, n_samples: int, k_down: int, k_attn: int,
     return new_p, new_x
 
 
-def check_shapes(n: int, stride, nsample, mesh: Mesh) -> list[int]:
+def check_shapes(n: int, stride, mesh: Mesh) -> list[int]:
     """The stage sizes of an ``n``-point cloud; raises unless ``n`` divides
-    by D times every cumulative stride product and each stage's k fits its
-    shard (the kNN k, and 3 for the upsampling)."""
+    by D times every cumulative stride product."""
     sizes, prod = [], 1
-    for i, s in enumerate(stride):
+    for s in stride:
         prod *= s
         if n % (mesh.size * prod):
             raise ValueError(f"N = {n} does not divide by D x stride product "
                              f"{mesh.size} x {prod}")
         sizes.append(n // prod)
-        if max(nsample[i], 3 if i else 1) > sizes[i] // mesh.size:
-            raise ValueError(f"stage {i}: k = {nsample[i]} > N_stage / D = "
-                             f"{sizes[i] // mesh.size}")
     return sizes
 
 
@@ -194,7 +192,7 @@ def sharded_backbone_forward(feat: torch.Tensor, params: dict, mesh: Mesh) -> di
     arch = params["arch"]
     stride, nsample, blocks = arch["stride"], arch["nsample"], arch["blocks"]
     bn_ct = arch["block_num"]
-    sizes = check_shapes(feat.shape[0] * mesh.size, stride, nsample, mesh)
+    sizes = check_shapes(feat.shape[0] * mesh.size, stride, mesh)
     p = feat[:, :3].to(torch.float32).contiguous()
     x = feat.to(torch.float32)
 

@@ -1,19 +1,30 @@
 """Point-axis-sharded FPS and neighbour gather (counterpart of
 toothgroupnetwork_tpu/parallel/sharded_ops.py).
 
-With the point axis sharded (each rank ``N/D`` rows, rank r's rows
-``r N/D ...``), FPS and the neighbourhood gather run without a rank ever
-holding the whole cloud:
+Rank r holds rows ``[r N // D, (r + 1) N // D)`` of a point axis
+(``points.bounds``: equal shards where D divides N).
 
-  * FPS is sequential over its samples. A step updates the shard's
-    distances elementwise in the order of K1's plain version
-    (``ops/kernels/fps.py:fps_reference``), takes the shard's (max, lowest
-    index) and that point's coordinates, and all-gathers the D rows: the
-    winner is the largest value, ties to the lower global index, and its
-    coordinates come from its owner's row. It is a loop in torch, as the
-    JAX version is a ``fori_loop``; no Pallas kernel backs it.
-  * the gather rotates the source shard around the ring; each of the D
-    steps serves the indices that fall in the resident shard.
+  * :func:`sharded_fps` (the point-sharded eval forward, equal shards)
+    never holds the whole cloud. FPS is sequential over its samples. A
+    step updates the shard's distances elementwise in the order of K1's
+    plain version (``ops/kernels/fps.py:fps_reference``), takes the shard's
+    (max, lowest index) and that point's coordinates, and all-gathers the D
+    rows: the winner is the largest value, ties to the lower global index,
+    and its coordinates come from its owner's row. It is a loop in torch,
+    as the JAX version is a ``fori_loop``; no Pallas kernel backs it.
+  * :func:`gather_axis` all-gathers a whole point axis once (no gradient):
+    the point-sharded train step's FPS (K1) and kNN (K2) run on the whole
+    cloud's coordinates, 12 bytes a point, as GSPMD runs the dense step's
+    kernels on the gathered cloud.
+  * :func:`ring_gather` rotates the source shard around the ring, padded to
+    ``ceil(N / D)`` rows in transit; each of the D steps serves the indices
+    that fall in the resident shard. Its backward runs the ring the other
+    way: an accumulator of each owner's row gradients travels to rank - 1,
+    every rank adding its gathered rows' gradients for that owner in one
+    ``index_put_(accumulate=True)`` (deterministic under
+    ``torch.use_deterministic_algorithms``: a sorted segment sum on the
+    card, in order on the CPU; never float atomics), until it reaches its
+    owner.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from .mesh import Mesh, all_gather, ring_pass
+from .points import bounds
 
 
 def sharded_fps(xyz: torch.Tensor, n_samples: int, mesh: Mesh,
@@ -68,19 +80,90 @@ def sharded_fps(xyz: torch.Tensor, n_samples: int, mesh: Mesh,
     return torch.tensor(out, dtype=torch.int64, device=xyz.device)
 
 
-def ring_gather(x: torch.Tensor, idx: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Rows of the cloud whose shard ``x`` ``[N/D, C]`` this rank holds, at
-    this rank's global indices ``idx`` ``[M, K]``: ``[M, K, C]``, bit-equal
-    to the dense row gather. The shard makes D - 1 ring passes."""
-    shard_n = x.shape[0]
-    idx = idx.to(torch.int64)
-    out = torch.zeros(idx.shape + x.shape[1:], dtype=x.dtype, device=x.device)
-    xs = x
-    for step in range(mesh.size):
-        owner = (mesh.rank - step) % mesh.size
-        here = (idx // shard_n) == owner
-        li = torch.clamp(idx - owner * shard_n, 0, shard_n - 1)
-        out = torch.where(here[..., None], xs[li], out)
-        if step + 1 < mesh.size:
-            xs = ring_pass(xs, mesh)
+def gather_axis(x: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
+    """The whole ``n``-row point axis of which this rank holds ``x``
+    ``[B, n_r, ...]``: ``[B, n, ...]``, every rank's rows in rank order, in
+    one all-gather of ``ceil(n / D)``-row payloads. No gradient."""
+    b = bounds(n, mesh.size)
+    parts = all_gather(pad_rows(x.detach(), -(-n // mesh.size)), mesh)
+    out = torch.cat([parts[r, :, :b[r + 1] - b[r]] for r in range(mesh.size)], dim=1)
+    return out.to(x.dtype)
+
+
+def pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` ``[B, n_r, C]`` padded to ``pad`` rows, a ring payload (bool as
+    uint8: the collectives take no bool)."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    if x.shape[1] == pad:
+        return x.contiguous()
+    out = x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))
+    out[:, :x.shape[1]] = x
     return out
+
+
+def _owners(idx: torch.Tensor, b: list[int]) -> torch.Tensor:
+    """The rank owning each global index (``b``: the shard bounds)."""
+    edges = torch.tensor(b[1:-1], dtype=torch.int64, device=idx.device)
+    return torch.bucketize(idx, edges, right=True)
+
+
+class _RingGather(torch.autograd.Function):
+    """Rows ``x`` ``[B, n_r, C]`` of an ``n``-point cloud at global indices
+    ``idx`` ``[B, ...]``; backward: the rows' gradients back to their
+    owners (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, mesh, n):
+        b = bounds(n, mesh.size)
+        pad = -(-n // mesh.size)        # the largest shard's rows
+        bsz = idx.shape[0]
+        flat = idx.reshape(bsz, -1).to(torch.int64)
+        owner = _owners(flat, b)
+        clouds = torch.arange(bsz, device=idx.device)[:, None].expand_as(flat)
+        blk = pad_rows(x, pad)
+        out = blk.new_zeros(flat.shape + tuple(x.shape[2:]))
+        for step in range(mesh.size):
+            o = (mesh.rank - step) % mesh.size
+            here = owner == o
+            li = torch.clamp(flat - b[o], 0, pad - 1)
+            out = torch.where(here.reshape(here.shape + (1,) * (out.dim() - 2)),
+                              blk[clouds, li], out)
+            if step + 1 < mesh.size:
+                blk = ring_pass(blk, mesh)
+        ctx.mesh, ctx.bounds, ctx.pad, ctx.n_own = mesh, b, pad, x.shape[1]
+        ctx.save_for_backward(flat, owner)
+        out = out.reshape(idx.shape + tuple(x.shape[2:]))
+        return out.to(torch.bool) if x.dtype == torch.bool else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, owner = ctx.saved_tensors
+        mesh, b, pad = ctx.mesh, ctx.bounds, ctx.pad
+        bsz = flat.shape[0]
+        g = grad.reshape(bsz, flat.shape[1], -1)
+        clouds = torch.arange(bsz, device=flat.device)[:, None].expand_as(flat)
+        acc = None
+        # backwards round the ring: at step t this rank adds to the
+        # accumulator of owner rank - t, then hands it to rank - 1
+        for t in range(mesh.size - 1, -1, -1):
+            o = (mesh.rank - t) % mesh.size
+            here = owner == o
+            part = g.new_zeros((bsz, pad, g.shape[-1])) if acc is None else acc
+            part = part.index_put_((clouds[here], (flat - b[o])[here]), g[here],
+                                   accumulate=True)
+            acc = ring_pass(part, mesh, shift=-1) if t else part
+        return acc[:, :ctx.n_own], None, None, None
+
+
+def ring_gather(x: torch.Tensor, idx: torch.Tensor, mesh: Mesh,
+                n: int | None = None) -> torch.Tensor:
+    """Rows of the cloud of ``n`` points (by default ``n_r`` times D) whose
+    rows ``x`` ``[n_r, C]`` (or ``[B, n_r, C]``) this rank holds, at this
+    rank's global indices ``idx`` ``[M, K]`` (``[B, ...]``):
+    ``idx.shape + (C,)``, bit-equal to the dense row gather. The shard makes
+    D - 1 ring passes; so does its gradient, the other way."""
+    if x.dim() == 2:
+        return ring_gather(x[None], idx[None], mesh, n)[0]
+    n = x.shape[1] * mesh.size if n is None else n
+    return _RingGather.apply(x, idx, mesh, n)
