@@ -131,23 +131,25 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      of the largest, K2 and K6 launches a rank, seconds and the sharded
      FPS's share;
  16. the point-sharded training step (``parallel/sharded_train.py``):
-     the pointtransformer preset at full width, batch 1 on phase 10's first
-     24000-point case, its point axis split over the two ranks, against the
-     dense one-process step on the card (losses, statistics, parameters;
-     tolerances derived beside ``PS_LOSS_RTOL``) and beside the control, the
-     dense step on the cloud twice (batch 2), and the dense step's own
-     update; two sharded steps from one state bit-identical, the ranks'
-     digests equal, K1 and K2 launched a rank as often as in the dense step
-     (each on the gathered coordinates), seconds a step, the FPS's share
-     and peak memory a rank.
+     the pointtransformer, pointnet, dgcnn and pointnetpp presets at full
+     width, batch 1 on phase 10's first 24000-point case, each with its
+     point axis split over the two ranks, against the dense one-process
+     step on the card (losses, statistics, parameters; tolerances derived
+     beside ``PS_LOSS_RTOL``) and beside the control, the dense step on
+     the cloud twice (batch 2), and the dense step's own update; two
+     sharded steps from one state bit-identical, the ranks' digests equal,
+     K1 and K2 launched a rank as often as in the dense step (each on the
+     gathered coordinates, DGCNN's K2 on the gathered features), seconds a
+     step, the FPS's share and peak memory a rank.
 
 Every log line carries the card's nvidia-smi name and power limit. Then
-one JSON line of the kernels, phase 16's summary again, the nvidia-smi line
-again, and last the line ``{"ok": true, "device": {...}}``. With
-``--parallel`` the run builds the kernels, holds them to their plain
-versions (phase 3) and runs phases 14-16 on the data phase 10 writes; it
-ends with phase 16's summary and the nvidia-smi line, and prints no
-kernels line and no ``ok`` line.
+one JSON line of the kernels, phase 16's summaries again (one a task, then
+the four tasks' seconds a step and peak GiB a rank on one line), the
+nvidia-smi line again, and last the line ``{"ok": true, "device":
+{...}}``. With ``--parallel`` the run builds the kernels, holds them to
+their plain versions (phase 3) and runs phases 14-16 on the data phase 10
+writes; it ends with phase 16's summaries and the nvidia-smi line, and
+prints no kernels line and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -3183,28 +3185,102 @@ def phase_parallel(dev, work: Path) -> dict:
 # the neighbours, decided within rounding, moves a share of a gradient
 # either way. So both are held to ``PS_PARAM_TOL`` of the largest (2.4x
 # the ranks' reading) and ``PS_L2_TOL`` of the update in L2 (3x the
-# control's), and the phase checks that the first bound stays under
-# ``PS_UPDATE_SHARE`` of the dense step's largest update (it reads 1.5 %):
-# a step that left the parameters unchanged, or one with a gradient off
-# by a share of its own size, fails.
+# control's), the first bound no more than ``PS_UPDATE_TOL`` of the dense
+# step's largest update (pointtransformer's reads 1.5 %): a step that
+# left the parameters unchanged, or one with a gradient off by a share of
+# its own size, fails. The families' steps at batch 1 move their largest
+# parameter by 2-7 % of its size (pointnet 0.028 of 1.00, DGCNN 0.019,
+# PointNet++ 0.072 in a dry run of this phase on the CPU at 2048 points),
+# so there the update's share is the smaller bound; that dry run read the
+# ranks at 0.08-0.56 % of the update (the control 0.0004-0.12 %) and 0.03
+# -0.1 % of it in L2 (the control up to 0.12 %).
+#
+# DGCNN's statistics. At batch 1 ``head1`` takes the global max, constant
+# over the points, beside the per-point features, and ``head1_bn``'s mean
+# sums a product whose rounding follows the global feature's: on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W) the control moved it by 1.2e-4, 9.3
+# times the statistics' bound, and the ranks by 1.5e-5, 1.14 times. Its
+# statistics, the control's and the ranks', are held to
+# ``PS_STAT_SCALE`` times the bound (2.2x the control's reading).
+PS_STAT_SCALE = {"dgcnn": 20.0}
 PS_RANKS = 2
 PS_LOSS_RTOL = 3.2e-4
 PS_STAT_RTOL, PS_STAT_ATOL = 2e-4, 1e-5
 PS_PARAM_TOL = 1e-2        # of the model's largest parameter, after step 1
 PS_L2_TOL = 1e-2           # of the dense step's update, in L2 over every parameter
-PS_UPDATE_SHARE = 0.1      # PS_PARAM_TOL x largest under this share of the update
+PS_UPDATE_TOL = 5e-2       # of the dense step's largest update, if smaller
+# The families' sharded steps (pointnet, dgcnn, pointnetpp at their presets'
+# widths: pointnet scale 2, DGCNN k 20 and emb 1024, PointNet++ 24000 ->
+# 1024 -> 512 -> 256) are held by the same bounds, each beside its own
+# control, the dense step on the cloud twice: their sums over the point
+# axis part in the same way (the BatchNorms' split sums, the global max's
+# gradient split over its tied rows), and they have fewer train-mode
+# BatchNorms than pointtransformer's 132, so ``PS_LOSS_RTOL`` bounds their
+# losses too. They step with the pointtransformer preset's SGD (lr 0.1,
+# momentum 0.9): under their Adam presets the first step moves every
+# parameter by +-lr whatever its gradient's size, so a parameter whose
+# gradient is rounding noise (a bias a BatchNorm cancels) flips sign, and
+# no bound on the parameters would hold. DGCNN keeps its dropout (0.5):
+# the dense step, the control (one cloud's mask drawn, used for both
+# copies: ``_tile_dropout``) and the ranks draw one mask from one seed.
+PS_TASKS = ("pointtransformer", "pointnet", "dgcnn", "pointnetpp")
+PS_DROPOUT_SEED = 15
+# where each task's FPS is timed (the module whose ``farthest_point_sample``
+# its model calls)
+PS_FPS_MODULES = {"pointtransformer": "models.point_transformer.backbone",
+                  "pointnetpp": "nn.set_abstraction"}
+# a dense step's K1 / K2 launches (PERF.md's "family train" column): the
+# families' FPS and kNN, each launched once a call
+PS_DENSE_LAUNCHES = {"pointtransformer": {"fps": 4, "knn_select": 17},
+                     "pointnet": {"fps": 0, "knn_select": 0},
+                     "dgcnn": {"fps": 0, "knn_select": 3},
+                     "pointnetpp": {"fps": 3, "knn_select": 3}}
 
 
-def point_sharded_steps(mesh, batch: dict, state: dict) -> dict:
-    """Phase 16 on one rank: the point-sharded pointtransformer step
-    (``make_point_sharded_train_step``, the preset's SGD) on this rank's
-    rows of ``batch``, twice from ``state``. Each run's losses, seconds,
-    the FPS's seconds (the gather and K1, each call synchronised), the K1 /
-    K2 launches (every count set to 0 just before the step), the state
-    digest and the peak memory; rank 0 also returns the state after the
-    first."""
+def _ps_config(name: str):
+    """The task and its preset for phase 16: the preset's widths; the
+    families with the pointtransformer preset's SGD."""
     from toothgroupnetwork_tpu_torch.models import get_task
-    from toothgroupnetwork_tpu_torch.models.point_transformer import backbone
+
+    task = get_task(name)
+    cfg = task.default_config()
+    if name != "pointtransformer":
+        sgd = get_task("pointtransformer").default_config().optimizer
+        cfg.optimizer = copy.deepcopy(sgd)
+    return task, cfg
+
+
+def _ps_generator(device) -> torch.Generator:
+    """Phase 16's dropout generator (DGCNN's), seeded alike on every rank."""
+    return torch.Generator(device=device).manual_seed(PS_DROPOUT_SEED)
+
+
+def _tile_dropout(model) -> None:
+    """The control's dropout on the cloud twice: one cloud's mask drawn
+    from the generator, as the dense step draws it, and used for both
+    copies, so the control computes the dense step's function."""
+    from toothgroupnetwork_tpu_torch.nn.layers import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            def forward(x, m=m, draw=m.forward):
+                if not m.training or m.p == 0.0:
+                    return x
+                keep = (draw(torch.ones_like(x[:1])) != 0).expand_as(x)
+                return torch.where(keep, x / (1.0 - m.p), torch.zeros_like(x))
+            m.forward = forward
+
+
+def point_sharded_steps(mesh, batch: dict, state: dict, name: str) -> dict:
+    """Phase 16 on one rank: the point-sharded step of task ``name``
+    (``make_point_sharded_train_step``, :func:`_ps_config`'s SGD) on this
+    rank's rows of ``batch``, twice from ``state``. Each run's losses,
+    seconds, the FPS's seconds (the gather and K1, each call synchronised),
+    the K1 / K2 launches (every count set to 0 just before the step), the
+    state digest and the peak memory; rank 0 also returns the state after
+    the first."""
+    import importlib
+
     from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
     from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
         make_point_sharded_train_step, shard_batch_points)
@@ -3212,12 +3288,13 @@ def point_sharded_steps(mesh, batch: dict, state: dict) -> dict:
     from toothgroupnetwork_tpu_torch.train import make_optimizer
 
     use_full_fp32()
-    task = get_task("pointtransformer")
-    cfg = task.default_config()
+    task, cfg = _ps_config(name)
     step = make_point_sharded_train_step(task, cfg, mesh)
     local = shard_batch_points(batch, mesh)
     fps_s = []
-    inner = backbone.farthest_point_sample
+    where = (importlib.import_module(f"toothgroupnetwork_tpu_torch.{PS_FPS_MODULES[name]}")
+             if name in PS_FPS_MODULES else None)
+    inner = where.farthest_point_sample if where else None
 
     def timed_fps(*a, **kw):
         torch.cuda.synchronize()
@@ -3229,18 +3306,20 @@ def point_sharded_steps(mesh, batch: dict, state: dict) -> dict:
 
     out = {"runs": [], "mesh": mesh.describe(),
            "rows": {k: list(v.shape) for k, v in local.items()}}
-    backbone.farthest_point_sample = timed_fps
+    if where:
+        where.farthest_point_sample = timed_fps
     try:
         for run in range(2):
             model = task.build_module(cfg, device=mesh.device)
             model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
             opt = make_optimizer(cfg.optimizer, model.parameters())
+            gen = _ps_generator(mesh.device)
             fps_s.clear()
             torch.cuda.reset_peak_memory_stats(mesh.device)
             fps.fps.launches = knn.knn_select.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            vals = step(model, opt, local)
+            vals = step(model, opt, local, generator=gen)
             torch.cuda.synchronize()
             out["runs"].append({
                 "s": time.perf_counter() - t0, "fps_s": sum(fps_s),
@@ -3253,66 +3332,85 @@ def point_sharded_steps(mesh, batch: dict, state: dict) -> dict:
             del model, opt
             torch.cuda.empty_cache()
     finally:
-        backbone.farthest_point_sample = inner
+        if where:
+            where.farthest_point_sample = inner
     return out
 
 
 def phase_point_sharded_train(dev, work: Path) -> tuple[dict, dict]:
     """Phase 16, the point-sharded training step on the card
-    (``parallel/sharded_train.py``): the pointtransformer preset at full
-    width (planes 32-512, nsample 36/24/24/24/24, blocks 2/3/4/6/3) from
-    the seeded flax-like initial weights, batch 1 on phase 10's first
-    24000-point case, its point axis split over ``PS_RANKS`` ranks sharing
-    the card over gloo (24000 -> 6000 -> 1500 -> 375 -> 93 points, shards
-    of 12000 ... 46 / 47 rows), against the dense one-process step on the
-    card from the same weights: step 1's losses, BatchNorm running
-    statistics and parameters within the tolerances derived above, beside
-    the control (the dense step on the cloud twice, batch 2) and the dense
-    step's own update; two sharded steps from one state bit-identical; every
-    rank's digest equal; K1 and K2 launched a rank as often as in the
-    dense step; seconds a step, the FPS's share, peak memory a rank.
-    Returns a rank's launches a step and the phase's summary."""
+    (``parallel/sharded_train.py``), for each of ``PS_TASKS`` at its
+    preset's full width from the seeded flax-like initial weights
+    (pointtransformer: planes 32-512, nsample 36/24/24/24/24, blocks
+    2/3/4/6/3, 24000 -> 6000 -> 1500 -> 375 -> 93 points, shards of 12000
+    ... 46 / 47 rows; pointnet at scale 2; DGCNN at k 20, emb 1024, dropout
+    0.5; PointNet++ at scale 4, 24000 -> 1024 -> 512 -> 256), batch 1 on
+    phase 10's first 24000-point case, its point axis split over
+    ``PS_RANKS`` ranks sharing the card over gloo (one pool for the four),
+    against the dense one-process step on the card from the same weights:
+    step 1's losses, BatchNorm running statistics and parameters within the
+    tolerances derived above, beside the control (the dense step on the
+    cloud twice, batch 2) and the dense step's own update; two sharded
+    steps from one state bit-identical; every rank's digest equal; K1 and
+    K2 launched a rank as often as in the dense step; seconds a step, the
+    FPS's share, peak memory a rank. Returns each task's launches a rank
+    and step, and the phase's summary by task."""
     from toothgroupnetwork_tpu_torch.data import DentalScanDataset
-    from toothgroupnetwork_tpu_torch.models import get_task
-    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
     from toothgroupnetwork_tpu_torch.parallel import RankPool
+
+    item = DentalScanDataset(str(work / "train_data"))[0]
+    batch = {k: item[k][None] for k in ("feat", "gt_seg_label", "mask")}
+    launches, summaries = {}, {}
+    with RankPool(PS_RANKS, "cuda") as pool:
+        for name in PS_TASKS:
+            launches[name], summaries[name] = _point_sharded_task(dev, pool, name, batch)
+    keys = {name: "point_sharded_train_launches_per_rank_step"
+            if name == "pointtransformer"
+            else f"point_sharded_train_{name}_launches_per_rank_step" for name in PS_TASKS}
+    return {keys[n]: launches[n] for n in PS_TASKS}, summaries
+
+
+def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
+    """Phase 16 for task ``name`` on ``pool``'s ranks: (a rank's launches a
+    step, the summary), every check raising."""
+    from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
     from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
     from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
 
     t_phase = time.perf_counter()
-    item = DentalScanDataset(str(work / "train_data"))[0]
-    batch = {k: item[k][None] for k in ("feat", "gt_seg_label", "mask")}
-    task = get_task("pointtransformer")
-    cfg = task.default_config()
+    task, cfg = _ps_config(name)
     model = task.build_module(cfg, device="cpu")
     init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
     state = _state_np(model)
 
-    def dense_step(b: dict) -> dict:
+    def dense_step(b: dict, control: bool = False) -> dict:
         model = task.build_module(cfg, device=dev)
         model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        if control:
+            _tile_dropout(model)
         opt = make_optimizer(cfg.optimizer, model.parameters())
         on_card = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        gen = _ps_generator(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         fps.fps.launches = knn.knn_select.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vals = train_step(model, opt, task, cfg, on_card)
+        vals = train_step(model, opt, task, cfg, on_card, generator=gen)
         torch.cuda.synchronize()
         out = {"s": time.perf_counter() - t0,
                "losses": {k: float(v) for k, v in vals.items()},
                "launches": {"fps": fps.fps.launches, "knn_select": knn.knn_select.launches},
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
                "state1": _state_np(model)}
         del model, opt
         torch.cuda.empty_cache()
         return out
 
     dense = dense_step(batch)
-    control = dense_step({k: np.concatenate([v, v]) for k, v in batch.items()})
-
-    with RankPool(PS_RANKS, "cuda") as pool:
-        t0 = time.perf_counter()
-        ranks = pool.run(point_sharded_steps, batch, state)
-        pool_s = time.perf_counter() - t0
+    control = dense_step({k: np.concatenate([v, v]) for k, v in batch.items()}, True)
+    t0 = time.perf_counter()
+    ranks = pool.run(point_sharded_steps, batch, state, name)
+    pool_s = time.perf_counter() - t0
 
     runs = [r["runs"] for r in ranks]
     want = dense["state1"]
@@ -3321,6 +3419,7 @@ def phase_point_sharded_train(dev, work: Path) -> tuple[dict, dict]:
     largest = max(float(np.abs(want[k]).max()) for k in params)
     update = {k: want[k] - state[k] for k in params}
     max_update = max(float(np.abs(u).max()) for u in update.values())
+    param_bound = min(PS_PARAM_TOL * largest, PS_UPDATE_TOL * max_update)
 
     def vs_dense(got: dict, losses: dict, held: list) -> dict:
         """Where ``got`` (a state after step 1) and ``losses`` part from
@@ -3351,18 +3450,20 @@ def phase_point_sharded_train(dev, work: Path) -> tuple[dict, dict]:
     launches = [[x["launches"] for x in r] for r in runs]
     expect = dense["launches"]
     summary = {
-        "what": "pointtransformer full width, batch 1, 24000 points point-sharded on "
+        "what": f"{name} full width, batch 1, 24000 points point-sharded on "
                 f"{PS_RANKS} ranks sharing the card vs the dense step",
         "sharded_vs_dense": {k: v for k, v in sharded.items() if not k.startswith("worst")},
         "control_vs_dense": {k: v for k, v in ctrl.items() if not k.startswith("worst")},
         "param_largest": largest, "max_update": max_update,
-        "max_update_over_largest": max_update / largest,
+        "max_update_over_largest": max_update / largest, "param_bound": param_bound,
+        "stat_bound_scale": PS_STAT_SCALE.get(name, 1.0),
         "repeat_identical": repeat, "ranks_identical": same,
         "launches_per_rank_step": launches, "dense_launches": expect,
         "step_s": [[x["s"] for x in r] for r in runs],
         "fps_share": [[x["fps_s"] / x["s"] for x in r] for r in runs],
         "rank_peak_gib": [[x["peak_gib"] for x in r] for r in runs],
-        "dense_step_s": dense["s"], "control_step_s": control["s"]}
+        "dense_step_s": dense["s"], "dense_peak_gib": dense["peak_gib"],
+        "control_step_s": control["s"]}
     log("point_sharded_train", **summary, mesh=ranks[0]["mesh"],
         rows=[r["rows"] for r in ranks], sharded_worst=sharded, control_worst=ctrl,
         fps_s=[[x["fps_s"] for x in r] for r in runs], losses=runs[0][0]["losses"],
@@ -3370,24 +3471,35 @@ def phase_point_sharded_train(dev, work: Path) -> tuple[dict, dict]:
         seconds=time.perf_counter() - t_phase)
     finite = all(np.isfinite(v) for r in runs for x in r for v in x["losses"].values())
     if not finite:
-        raise AssertionError(f"point-sharded losses not finite: {runs}")
+        raise AssertionError(f"{name} point-sharded losses not finite: {runs}")
     if any(x["losses"] != runs[0][0]["losses"] for r in runs for x in r):
-        raise AssertionError("point-sharded ranks or runs report other losses")
+        raise AssertionError(f"{name} point-sharded ranks or runs report other losses")
     for what, got in (("point-sharded", sharded), ("control", ctrl)):
         if (max(got["loss_rel_diff"].values()) > PS_LOSS_RTOL
-                or got["stat_diff_over_tol"] > 1.0
-                or got["param_max_diff"] > PS_PARAM_TOL * largest
+                or got["stat_diff_over_tol"] > PS_STAT_SCALE.get(name, 1.0)
+                or got["param_max_diff"] > param_bound
                 or got["param_l2_over_update"] > PS_L2_TOL):
-            raise AssertionError(f"{what} state vs the dense step: {got}")
-    if PS_PARAM_TOL * largest > PS_UPDATE_SHARE * max_update:
-        raise AssertionError(f"the parameter bound {PS_PARAM_TOL * largest} is not under "
-                             f"{PS_UPDATE_SHARE} of the dense step's update {max_update}")
+            raise AssertionError(f"{name} {what} state vs the dense step: {got}")
     if not (repeat and same):
-        raise AssertionError(f"point-sharded steps not bit-identical: repeat {repeat}, "
-                             f"ranks {same}")
+        raise AssertionError(f"{name} point-sharded steps not bit-identical: repeat "
+                             f"{repeat}, ranks {same}")
     if any(x != expect for r in launches for x in r):
-        raise AssertionError(f"point-sharded launches {launches} != {expect}")
-    return {"point_sharded_train_launches_per_rank_step": launches[0][0]}, summary
+        raise AssertionError(f"{name} point-sharded launches {launches} != {expect}")
+    if expect != PS_DENSE_LAUNCHES[name]:
+        raise AssertionError(f"{name} dense step launches {expect} != "
+                             f"{PS_DENSE_LAUNCHES[name]}")
+    return launches[0][0], summary
+
+
+def _ps_lines(summaries: dict) -> None:
+    """Phase 16's summary lines: one a task, and the seconds a step and
+    peak GiB a rank of every task on one line."""
+    for name, summary in summaries.items():
+        log("point_sharded_train_summary", task=name, **summary)
+    log("point_sharded_train_seconds", **{
+        name: {"step_s": s["step_s"], "rank_peak_gib": s["rank_peak_gib"],
+               "dense_step_s": s["dense_step_s"], "launches_per_rank_step":
+               s["launches_per_rank_step"][0][0]} for name, s in summaries.items()})
 
 
 def short(kernel_name: str) -> str:
@@ -3403,8 +3515,8 @@ def parallel_only(dev, smi: str) -> int:
         work = Path(tmp)
         write_train_data(work)
         phase_parallel(dev, work)
-        _, summary = phase_point_sharded_train(dev, work)
-    log("point_sharded_train_summary", **summary)
+        _, summaries = phase_point_sharded_train(dev, work)
+    _ps_lines(summaries)
     print(smi)
     return 0
 
@@ -3512,7 +3624,7 @@ def main() -> int:
         family_train = phase_family_train(dev, work,
                                           work / "families_scan" / scans[1].name)
         parallel = phase_parallel(dev, work)
-        ps_launches, ps_summary = phase_point_sharded_train(dev, work)
+        ps_launches, ps_summaries = phase_point_sharded_train(dev, work)
         parallel.update(ps_launches)
 
     # each kernel's count from the run of its own path: K1-K3 from the
@@ -3542,7 +3654,7 @@ def main() -> int:
             config: seen.get(name, 0) for config, seen in boundary.items()}
         # the parallel layer (phases 14-16): a rank's launches in a
         # data-parallel tgnet_fps step, in the point-sharded forward and in
-        # the point-sharded pointtransformer step
+        # the point-sharded step of each task of phase 16
         for key, seen in parallel.items():
             rec.entry[key] = seen.get(name, 0)
     # each K3 shape with its launches a scan, per configuration
@@ -3550,7 +3662,7 @@ def main() -> int:
         row["launches_per_scan"] = {what: seen.get(row["shape"], 0)
                                     for what, seen in SCAN_K3_SHAPES.items()}
     print(json.dumps({"kernels": [r.entry for r in records]}))
-    log("point_sharded_train_summary", **ps_summary)
+    _ps_lines(ps_summaries)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

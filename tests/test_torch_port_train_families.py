@@ -24,10 +24,14 @@ scale jittered and the zero-initialised heads drawn
     port's feature-space neighbour lists through a ``pure_callback`` on
     ``stop_gradient(x)`` (only the indices cross; near-ties swap between
     JAX's matmul expansion and the port's fixed-order sum,
-    tests/test_torch_port_families.py holds the selection itself). The
-    port's dropout is held to its contract in a test of its own;
+    tests/test_torch_port_families.py holds the selection itself); over
+    several steps it replays the lists the port chose on its own features
+    (``ReplayedSelection``). The port's dropout is held to its contract in
+    a test of its own;
   * ``cli.train --device cpu`` for one epoch for each name.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +47,7 @@ from toothgroupnetwork_tpu.models import dgcnn as jax_dgcnn_mod
 from toothgroupnetwork_tpu.models import get_task as jax_get_task
 from toothgroupnetwork_tpu_torch import ops
 from toothgroupnetwork_tpu_torch.cli import train as cli_train
+from toothgroupnetwork_tpu_torch.models import dgcnn as port_dgcnn_mod
 from toothgroupnetwork_tpu_torch.models import get_task
 from toothgroupnetwork_tpu_torch.nn.layers import Dropout
 from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
@@ -117,6 +122,76 @@ def shared_selection(monkeypatch):
         idx = jax.pure_callback(select, shape, xs, mask)
         return idx, jnp.zeros(idx.shape, jnp.float32)
     monkeypatch.setattr(jax_dgcnn_mod, "knn_points", port_knn)
+
+
+class ReplayedSelection:
+    """The JAX DGCNN takes the neighbour lists the port's DGCNN chose on its
+    own features in the same step. Inside ``record()`` every list the port's
+    ``models.dgcnn.knn_points`` returns is kept, in call order, as the
+    lists of one more step (``steps``; a caller may append a step's lists
+    itself, such as the point-sharded ranks' rows joined); inside
+    ``replay(step)`` the JAX DGCNN's selections return that step's lists
+    through a ``pure_callback`` on ``stop_gradient(x)``, in the same order
+    (only the indices cross), each taken once.
+
+    Over several steps the two packages' features part by their rounding,
+    and a feature-space near-tie can fall to opposite sides: under an AVX2
+    dispatch one row of step 3's third selection in the DGCNN SGD steps
+    holds candidate 133 on the port's features (d2 12.576379 against 37's
+    12.576382) and 37 on JAX's (12.576330 against 12.576447), so
+    ``shared_selection`` handed JAX another list than the port's. The
+    harness's rule is that JAX takes the port's discrete choices, so it
+    takes the port's own lists."""
+
+    def __init__(self, monkeypatch):
+        self.steps: list[list[np.ndarray]] = []
+        self._recording = False
+        self._pending: list[np.ndarray] | None = None
+        select = port_dgcnn_mod.knn_points
+
+        def record(*args, **kwargs):
+            out = select(*args, **kwargs)
+            if self._recording:
+                self.steps[-1].append(out[0].numpy().copy())
+            return out
+
+        def replay(x, _x2, k, mask=None, _mask2=None, *, include_self, need_dist,
+                   sel_bf16=False):
+            del include_self, need_dist, sel_bf16
+
+            def take(_xv):
+                assert self._pending, "a JAX selection without a port list to replay"
+                idx = self._pending.pop(0)
+                assert idx.shape == _xv.shape[:2] + (k,), (idx.shape, _xv.shape)
+                return idx
+            shape = jax.ShapeDtypeStruct(x.shape[:2] + (k,), jnp.int32)
+            idx = jax.pure_callback(take, shape, jax.lax.stop_gradient(x))
+            return idx, jnp.zeros(idx.shape, jnp.float32)
+
+        monkeypatch.setattr(port_dgcnn_mod, "knn_points", record)
+        monkeypatch.setattr(jax_dgcnn_mod, "knn_points", replay)
+
+    @contextlib.contextmanager
+    def record(self):
+        self.steps.append([])
+        self._recording = True
+        try:
+            yield
+        finally:
+            self._recording = False
+        assert self.steps[-1], "the port's forward made no selection"
+
+    @contextlib.contextmanager
+    def replay(self, step: int):
+        """JAX's forwards inside take the lists of ``step`` (1-based); the
+        caller blocks on the JAX results inside, so that every callback has
+        run when the block ends."""
+        self._pending = list(self.steps[step - 1])
+        try:
+            yield
+        finally:
+            pending, self._pending = self._pending, None
+        assert not pending, f"{len(pending)} port lists of step {step} not replayed"
 
 
 _INIT: dict = {}

@@ -34,8 +34,9 @@ enabled, variables and batch cast; its BatchNorms keep the float32 the
 module fixes): the port's float32 gradients lie within 1e-5 of each
 tensor's largest. JAX takes the port's discrete choices, which the forward
 tests hold equal: FPS, ball query and kNN computed in float32
-(``float32_selections``), DGCNN's neighbour lists (``shared_selection``)
-and the argmax of every PointNet++ neighbourhood max-pool
+(``float32_selections``), DGCNN's neighbour lists (``shared_selection``
+at step 1; over the SGD steps the lists the port chose in each step,
+``ReplayedSelection``) and the argmax of every PointNet++ neighbourhood max-pool
 (``SharedMaxima``). PointNet++'s gradient still has kinks within rounding
 of the step: among its 10^6 grouped ReLU units and max-pools a few are
 near-ties that float32 rounding decides, and each moves the gradient of a
@@ -59,8 +60,9 @@ import numpy as np
 import pytest
 
 from test_torch_port_families import _flat, _t
-from test_torch_port_train_families import (LOSS_RTOL, TOL, _batch, _load, _modules,
-                                            _variables, shared_selection)
+from test_torch_port_train_families import (LOSS_RTOL, TOL, ReplayedSelection, _batch,
+                                            _load, _modules, _variables,
+                                            shared_selection)
 from toothgroupnetwork_tpu.models import tsegnet as jax_tsegnet_mod
 from toothgroupnetwork_tpu.models.point_transformer import backbone as jax_pt_backbone
 from toothgroupnetwork_tpu.nn import layers as jax_layers
@@ -372,9 +374,18 @@ def check_state(model, state, step, reference=None) -> None:
 def test_steps_match_jax(monkeypatch, name, opt, lr):
     """Steps 1-3 beside JAX ``make_train_step`` from the same variables
     (the zero-initialised heads at zero, as training starts): the loss
-    every step, every parameter and statistic after steps 1 and 3."""
-    if name == "dgcnn":
-        shared_selection(monkeypatch)
+    every step, every parameter and statistic after steps 1 and 3. Each
+    port step runs first, and JAX's DGCNN takes the neighbour lists that
+    step chose (``ReplayedSelection``), in float32 and in the float64
+    reference alike."""
+    selection = ReplayedSelection(monkeypatch) if name == "dgcnn" else None
+
+    def record():
+        return selection.record() if selection else contextlib.nullcontext()
+
+    def replay(step):
+        return selection.replay(step) if selection else contextlib.nullcontext()
+
     jtask, jcfg, module, ptask, pcfg, model = _modules(name)
     for cfg in (jcfg, pcfg):
         cfg.optimizer.name, cfg.optimizer.lr = opt, lr
@@ -388,23 +399,31 @@ def test_steps_match_jax(monkeypatch, name, opt, lr):
     optimizer = make_optimizer(pcfg.optimizer, model.parameters())
     tb = {k: _t(v) for k, v in b.items()}
     float64_states: list = []
+    float64_run: dict = {}
 
     def reference(step):
         """The port-named state after ``step`` JAX steps in float64 from the
-        same variables (``float64_jax``), computed on the first miss."""
-        if not float64_states:
-            with float64_jax(monkeypatch):
-                s64 = jax_state(module, jax_make_optimizer(jcfg.optimizer),
-                                as_float64(vs["params"]), as_float64(vs["batch_stats"]))
-                step64 = jax.jit(make_train_step(jtask, jcfg))
-                for _ in range(3):
-                    s64, _ = step64(s64, as_float64(db))
-                    float64_states.append(_variables_of(s64))
+        same variables (``float64_jax``), each step computed on the first
+        miss that needs it."""
+        with float64_jax(monkeypatch):
+            if not float64_run:
+                float64_run["state"] = jax_state(
+                    module, jax_make_optimizer(jcfg.optimizer),
+                    as_float64(vs["params"]), as_float64(vs["batch_stats"]))
+                float64_run["step"] = jax.jit(make_train_step(jtask, jcfg))
+            while len(float64_states) < step:
+                with replay(len(float64_states) + 1):
+                    s64, _ = float64_run["step"](float64_run["state"], as_float64(db))
+                    jax.block_until_ready(s64)
+                float64_run["state"] = s64
+                float64_states.append(_variables_of(s64))
         return float64_states[step - 1]
 
     for step in (1, 2, 3):
-        state, jvals = jstep(state, db)
-        pvals = train_step(model, optimizer, ptask, pcfg, tb)
+        with record():
+            pvals = train_step(model, optimizer, ptask, pcfg, tb)
+        with replay(step):
+            state, jvals = jax.block_until_ready(jstep(state, db))
         assert set(pvals) == set(jvals) == {"tooth_class_loss_1"}
         for key, val in jvals.items():
             assert float(pvals[key]) == pytest.approx(float(val), rel=LOSS_RTOL), (step, key)

@@ -6,6 +6,7 @@ This module imports torch and the port only, never JAX."""
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 
 import numpy as np
@@ -285,11 +286,15 @@ def trainer_retry_job(mesh, d, name, mp, data_dir, ckpt, fail_rank):
 
 # ------------------------------------------------------------ point-sharded training
 
-def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01):
-    """One step of the point-sharded ``pointtransformer`` step (SGD,
-    momentum 0.9, ``lr``) over the mesh of ``d`` ranks from ``state``, each
-    rank on its rows of ``batch``; on rank 0 also the dense one-process
-    step. Returns (this rank's snapshot, rank 0's dense one)."""
+def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01, name="pointtransformer",
+                           dropout=None, seed=None):
+    """One step of the point-sharded step of task ``name`` (SGD, momentum
+    0.9, ``lr``) over the mesh of ``d`` ranks from ``state``, each rank on
+    its rows of ``batch``; on rank 0 also the dense one-process step.
+    ``dropout``: the model's dropout rate, if not the preset's; ``seed``:
+    the dropout generator's seed, the same for both steps. Returns (this
+    rank's snapshot, rank 0's dense one); a DGCNN snapshot also holds the
+    step's neighbour lists (``"knn"``: this rank's rows, in call order)."""
     from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
         make_point_sharded_train_step, shard_batch_points)
     from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
@@ -297,24 +302,53 @@ def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01):
     m = sub(mesh, d)
     if m is None:
         return None
-    task = get_task("pointtransformer")
+    task = get_task(name)
     cfg = task.default_config()
     cfg.model_parameter.update(mp)
-    cfg.optimizer.lr, cfg.optimizer.momentum = lr, 0.9
+    cfg.optimizer.name, cfg.optimizer.lr, cfg.optimizer.momentum = "sgd", lr, 0.9
 
     def run(sharded):
         model = task.build_module(cfg, device="cpu")
         model.load_state_dict({k: _t(v) for k, v in state.items()})
+        if dropout is not None:
+            model.drop.p = dropout
         opt = make_optimizer(cfg.optimizer, model.parameters())
-        if sharded:
-            values = make_point_sharded_train_step(task, cfg, m)(
-                model, opt, shard_batch_points(batch, m))
-        else:
-            values = train_step(model, opt, task, cfg, {k: _t(v) for k, v in batch.items()})
-        return _snapshot(model, {f"{k}_train": float(v) for k, v in values.items()})
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        lists: list = []
+        with _recorded_selections(lists):
+            if sharded:
+                values = make_point_sharded_train_step(task, cfg, m)(
+                    model, opt, shard_batch_points(batch, m), generator=gen)
+            else:
+                values = train_step(model, opt, task, cfg,
+                                    {k: _t(v) for k, v in batch.items()}, generator=gen)
+        got = _snapshot(model, {f"{k}_train": float(v) for k, v in values.items()})
+        if lists:
+            got["knn"] = lists
+        return got
 
     got = run(True)
     return got, (run(False) if m.rank == 0 else None)
+
+
+@contextlib.contextmanager
+def _recorded_selections(lists: list):
+    """Every neighbour list the DGCNN's ``knn_points`` returns inside,
+    appended to ``lists`` as numpy, in call order."""
+    from toothgroupnetwork_tpu_torch.models import dgcnn
+
+    select = dgcnn.knn_points
+
+    def record(*args, **kwargs):
+        out = select(*args, **kwargs)
+        lists.append(_np(out[0]).copy())
+        return out
+
+    dgcnn.knn_points = record
+    try:
+        yield
+    finally:
+        dgcnn.knn_points = select
 
 
 def _rows(a, m, axis=1):
@@ -361,3 +395,71 @@ def ring_knn_context_job(mesh, d, xyz, q, mask, k):
         out["rescored"] = tuple(_np(t) for t in knn_points(qq, p, k, None, mk))
         out["fps"] = _np(farthest_point_sample(p, n // 4, mk))
     return out
+
+
+def masked_max_job(mesh, d, x, mask, w):
+    """``masked_max`` over the point axis inside the point-sharded context
+    on this rank's rows of ``x`` ``[B, N, C]`` and ``mask``, and the
+    gradient of its sum weighted by ``w`` ``[B, C]`` with respect to the
+    rows, divided by D as the step's gradient all-reduce divides it."""
+    from toothgroupnetwork_tpu_torch.nn.layers import masked_max
+    from toothgroupnetwork_tpu_torch.parallel import points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    xl = _rows(x, m).requires_grad_(True)
+    with points.context(m, x.shape[1]):
+        out = masked_max(xl, _rows(mask, m), dim=1)
+    (out * _t(w)).sum().backward()
+    return {"out": _np(out), "grad": _np(xl.grad / m.size)}
+
+
+def ball_query_job(mesh, d, xyz, mask, centres, radius, k):
+    """``ball_query`` inside the point-sharded context: this rank's rows of
+    the ``centres`` ``[B, S, 3]`` against its rows of the cloud ``xyz``
+    ``[B, N, 3]`` and its ``mask``."""
+    from toothgroupnetwork_tpu_torch.ops import ball_query
+    from toothgroupnetwork_tpu_torch.parallel import points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    with points.context(m, xyz.shape[1]):
+        points.register(centres.shape[1])
+        return _np(ball_query(radius, k, _rows(xyz, m), _rows(centres, m),
+                              _rows(mask, m)))
+
+
+def feature_knn_job(mesh, d, x, mask, k):
+    """DGCNN's selection, ``knn_points(x, x, k, mask, mask,
+    include_self=True, need_dist=False)``, inside the point-sharded context
+    on this rank's rows of the features ``x`` ``[B, N, C]``."""
+    from toothgroupnetwork_tpu_torch.ops import knn_points
+    from toothgroupnetwork_tpu_torch.parallel import points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    xl, ml = _rows(x, m), _rows(mask, m)
+    with points.context(m, x.shape[1]):
+        idx, dist = knn_points(xl, xl, k, ml, ml, include_self=True, need_dist=False)
+    return _np(idx), _np(dist)
+
+
+def dropout_draw_job(mesh, d, shape, p, seed):
+    """A train-mode ``Dropout(p)``'s mask on this rank's rows of a
+    ``[B, N, C]`` tensor of ones, inside the point-sharded context and the
+    data-parallel one (as in the point-sharded step), from a generator
+    seeded with ``seed``."""
+    from toothgroupnetwork_tpu_torch.nn.layers import Dropout
+    from toothgroupnetwork_tpu_torch.parallel import data_parallel, points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    drop = Dropout(p).train()
+    drop.generator = torch.Generator().manual_seed(seed)
+    lo, hi = points.rows(shape[1], m)
+    with points.context(m, shape[1]), data_parallel.context(m):
+        return _np(drop(torch.ones((shape[0], hi - lo) + tuple(shape[2:]))))

@@ -17,12 +17,17 @@ from ..parallel import points as point_shards
 def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Max over ``dim`` with invalid positions held at -1e30 (so a fully
     masked row gives -1e30, as in the JAX package); ``mask`` has ``x``'s
-    shape without the channel axis. No point-sharded route yet."""
-    point_shards.unsupported("masked_max over the point axis")
-    if mask is None:
-        return x.amax(dim=dim)
-    return torch.where(mask.to(torch.bool)[..., None], x,
-                       torch.tensor(-1e30, dtype=x.dtype, device=x.device)).amax(dim=dim)
+    shape without the channel axis. Inside the point-sharded context
+    (``dim`` 1, the point axis) the max of the whole cloud, its gradient
+    split over the tied rows of every rank (``points.pmax``)."""
+    if mask is not None:
+        x = torch.where(mask.to(torch.bool)[..., None], x,
+                        torch.tensor(-1e30, dtype=x.dtype, device=x.device))
+    if point_shards.active() is not None:
+        if dim != 1:
+            point_shards.unsupported(f"masked_max over axis {dim}")
+        return point_shards.pmax(x)
+    return x.amax(dim=dim)
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
@@ -158,7 +163,9 @@ class Dropout(nn.Module):
     probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
     from ``generator`` on the input's device (``train_step`` sets it for
     its step and clears it after; the Trainer seeds it each step); the
-    identity in eval mode and at p = 0.
+    identity in eval mode and at p = 0. Inside the point-sharded context
+    ``x`` is ``[B, n_r, C]``, this rank's rows of the point axis, and the
+    mask this rank's rows of the whole axis's draw.
     Train mode at p > 0 without a generator raises, as flax does without a
     dropout key."""
 
@@ -175,10 +182,18 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise ValueError("Dropout in train mode needs a generator "
                              "(train_step(..., generator=...))")
-        # under a data-parallel step, this rank's rows of the global draw
-        keep = data_parallel.global_rows(
-            x.shape, lambda shape: torch.rand(shape, generator=self.generator,
-                                              device=x.device)) < 1.0 - self.p
+
+        def draw(shape):
+            return torch.rand(shape, generator=self.generator, device=x.device)
+
+        # this rank's rows of the global draw: of the batch under a
+        # data-parallel step, of the point axis under a point-sharded one
+        if point_shards.active() is not None:
+            if x.dim() != 3:
+                point_shards.unsupported(f"Dropout on a {x.dim()}-d tensor")
+            keep = point_shards.global_rows(x.shape, draw) < 1.0 - self.p
+        else:
+            keep = data_parallel.global_rows(x.shape, draw) < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 

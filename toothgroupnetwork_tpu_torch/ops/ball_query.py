@@ -7,6 +7,13 @@ missing slots with the first in-ball point, and falls back to the nearest
 point when the ball is empty. Masked points carry a 1e10 bias, so they are
 never in a ball; a fully masked cloud falls back to index 0.
 
+Inside the point-sharded context (``parallel/points.py``) the queries are
+this rank's rows of the centres and the candidates the whole cloud: its
+coordinates and mask are all-gathered once (13 bytes a point,
+``parallel/sharded_ops.py:gather_axis``), and the dense body runs this
+rank's queries against them, so the indices are global and the three
+rules above hold over the whole cloud.
+
 The lowest indices come from a prefix count: ``cnt = cumsum(in_ball)`` is
 non-decreasing along a row, so the j-th in-ball point is the first position
 where ``cnt`` reaches j (``searchsorted``). No row of ``[S, N]`` is sorted.
@@ -27,9 +34,19 @@ def ball_query(radius: float, k: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
                ) -> torch.Tensor:
     """xyz ``[N, 3]``/``[B, N, 3]`` points, new_xyz ``[S, 3]``/``[B, S, 3]``
     centres, optional bool ``p_mask`` over xyz -> int32 ``[..., S, k]``
-    indices into the N axis."""
-    point_shards.unsupported("ball_query")
-    if xyz.dim() == 2:
+    indices into the N axis. Inside the point-sharded context ``xyz`` and
+    ``p_mask`` are this rank's rows of the cloud, ``new_xyz`` its rows of
+    the centres, and the indices global."""
+    mesh = point_shards.active()
+    if mesh is not None:
+        from ..parallel.sharded_ops import gather_axis
+
+        if xyz.dim() != 3:
+            point_shards.unsupported("ball_query on an unbatched cloud")
+        n = point_shards.global_size(xyz.shape[1])
+        xyz = gather_axis(xyz, mesh, n)
+        p_mask = None if p_mask is None else gather_axis(p_mask, mesh, n)
+    elif xyz.dim() == 2:
         return ball_query(radius, k, xyz[None], new_xyz[None],
                           None if p_mask is None else p_mask[None], chunk=chunk)[0]
     b, n, _ = xyz.shape

@@ -3,9 +3,9 @@ its exact route): the selection runs through K2 (``kernels/knn.py``); the
 self-first dedup and the exact re-score are plain torch, as they are XLA
 around the Pallas kernel in the JAX package. Inside the point-sharded
 context (``parallel/points.py``) K2 selects for this rank's query rows
-over the whole cloud, its coordinates and bias all-gathered once
-(``parallel/ring.py:sharded_select``), and the rest runs as here, with
-global indices."""
+over the whole cloud, its coordinates (or DGCNN's features) and bias
+all-gathered once (``parallel/ring.py:sharded_select``), on the route the
+dense call takes, and the rest runs as here, with global indices."""
 
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, k: int,
         p_mask = None if p_mask is None else p_mask[None]
     query = query.to(torch.float32).contiguous()
     points = points.to(torch.float32).contiguous()
-    b, m, c = query.shape
+    b, m = query.shape[:2]
     n = points.shape[1]
     bias = None
     if p_mask is not None:
@@ -59,8 +59,6 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, k: int,
     else:
         from ..parallel.ring import sharded_select
 
-        if c != 3:
-            point_shards.unsupported(f"knn_points in a {c}-channel feature space")
         n = point_shards.global_size(n)
         if include_self:
             q_base = point_shards.rows(point_shards.global_size(m), mesh)[0]

@@ -12,15 +12,22 @@ route themselves:
     once (``sharded_ops.gather_axis``), this rank's rows of the sample;
   * ``ops.knn_points`` / ``knn_self`` -> K2 for this rank's query rows
     against the whole cloud, all-gathered once, before their dense
-    post-processing (``ring.sharded_select``);
+    post-processing (``ring.sharded_select``), in xyz and in a feature
+    space alike (DGCNN's C = 6 and 64);
+  * ``ops.ball_query`` -> the dense body for this rank's query rows
+    against the whole cloud's coordinates and mask, all-gathered once;
   * ``ops.index_points`` on a point-sharded source ->
     ``sharded_ops.ring_gather``, whose backward returns the rows' gradients
     to their owners;
   * ``nn.layers.masked_mean`` over the point axis -> :func:`psum` of the
-    masked sum and count.
+    masked sum and count;
+  * ``nn.layers.masked_max`` over the point axis -> :func:`pmax`;
+  * ``nn.layers.Dropout`` on point rows -> the whole axis's draw, this
+    rank's rows of it (:func:`global_rows`).
 
-An op that the context does not route (``masked_max``, ``ball_query``,
-feature-space kNN) raises :func:`unsupported`, so no rank computes a
+The rows after a global max (``[B, C]``) are replicated: every rank runs
+the ops on them whole, outside every collective. An op that the context
+does not route raises :func:`unsupported`, so no rank computes a
 per-shard answer in silence. Outside the context every hook is the
 identity.
 
@@ -35,6 +42,7 @@ import contextlib
 from typing import TYPE_CHECKING
 
 import torch
+import torch.distributed as dist
 
 if TYPE_CHECKING:
     from .mesh import Mesh
@@ -125,6 +133,36 @@ def psum(t: torch.Tensor) -> torch.Tensor:
     from .data_parallel import _Psum
 
     return _Psum.apply(t, _ACTIVE.mesh.group)
+
+
+def pmax(x: torch.Tensor) -> torch.Tensor:
+    """The max over the point axis of the cloud whose rows ``x`` ``[B, n_r,
+    C]`` this rank holds: ``[B, C]`` on every rank, bit-equal to
+    ``amax(dim=1)`` of the whole cloud, and with its gradient, which
+    ``amax`` splits evenly over the tied rows, split evenly over the tied
+    rows of every rank. The max ``g`` is a MAX all-reduce of the shards'
+    maxima (no gradient); the result is ``g + psum(sum((x - g) * tied)) /
+    psum(count(tied))``: ``x - g`` is exactly 0 at a tie, so the value is
+    ``g``, and the gradient ``tied / count``. A shard whose rows all lie
+    below ``g`` (only padding, say) has no tie and no gradient."""
+    mesh = _ACTIVE.mesh
+    g = x.detach().amax(dim=1)
+    dist.all_reduce(g, op=dist.ReduceOp.MAX, group=mesh.group)
+    g = g[:, None]
+    tied = x.detach() == g
+    c = x.shape[-1]
+    s = psum(torch.cat([((x - g) * tied).sum(dim=1), tied.sum(dim=1).to(x.dtype)],
+                       dim=-1))
+    return g[:, 0] + s[..., :c] / s[..., c:]
+
+
+def global_rows(shape: tuple, draw) -> torch.Tensor:
+    """``draw(shape)`` for a tensor ``[B, n_r, ...]`` of this rank's rows
+    of a point axis: ``draw`` of the whole axis's shape, and this rank's
+    rows of it, so the ranks' rows together are the dense draw."""
+    n = global_size(shape[1])
+    lo, hi = rows(n, _ACTIVE.mesh)
+    return draw((shape[0], n) + tuple(shape[2:]))[:, lo:hi]
 
 
 def unsupported(op: str) -> None:

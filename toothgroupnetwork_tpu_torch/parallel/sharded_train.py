@@ -8,12 +8,15 @@ the dense step's by construction. torch has no GSPMD. Here each rank runs
 the same dense step (``train/trainer.py:train_step``) on its rows of the
 point axis (:func:`shard_batch_points`), inside the point-sharded context
 (``parallel/points.py``), where the point-axis ops write out what XLA
-inserts: FPS with an all-gathered winner, kNN over the ring through K2,
-row gathers over the ring with their gradients returned to the owners,
-and the bottleneck mean's sum over the shards. The BatchNorm sums and the
-loss normalisers reduce over the shards through the step's
-``data_parallel`` context (``data_parallel.psum`` / ``ratio``), as in a
-data-parallel step.
+inserts: FPS (K1) and kNN (K2, in xyz and in DGCNN's feature space) on
+the all-gathered cloud, the ball query against the all-gathered
+coordinates, row gathers over the ring with their gradients returned to
+the owners, the bottleneck mean's sum and the global max (PointNet's and
+DGCNN's) over the shards, and dropout's draw over the whole point axis.
+The BatchNorm sums and the loss normalisers reduce over the shards
+through the step's ``data_parallel`` context (``data_parallel.psum`` /
+``ratio``), as in a data-parallel step; the rows after a global max are
+replicated, and every rank runs their ops whole, outside those sums.
 
 The gradient. Every rank computes the whole loss L from the psummed sums,
 and the backward of each exchange is its adjoint (the psum's sums the
@@ -44,7 +47,7 @@ POINT_AXIS = "points"
 
 # the tasks whose forward reaches only point-axis ops the context routes;
 # the others raise (ROADMAP.md Queue 1 names what each still needs)
-SUPPORTED_TASKS = ("pointtransformer",)
+SUPPORTED_TASKS = ("pointtransformer", "pointnet", "dgcnn", "pointnetpp")
 
 
 def shard_batch_points(batch: dict, mesh: Mesh) -> dict:
@@ -70,10 +73,13 @@ def shard_batch_points(batch: dict, mesh: Mesh) -> dict:
 def make_point_sharded_train_step(task, config, mesh: Mesh):
     """The dense train step for point-sharded batches on ``mesh``.
 
-    Returns ``step(model, optimizer, batch) -> values``: ``batch`` from
-    :func:`shard_batch_points`, ``model`` and ``optimizer`` replicated
-    (equal on every rank, as ``mesh.replicate`` leaves them); the values
-    are the global losses, the same on every rank. Raises
+    Returns ``step(model, optimizer, batch, generator=None) -> values``:
+    ``batch`` from :func:`shard_batch_points`, ``model`` and ``optimizer``
+    replicated (equal on every rank, as ``mesh.replicate`` leaves them),
+    ``generator`` the dropout generator of the step (``train_step``'s; in
+    the same state on every rank, so that every rank draws the dense
+    step's mask and keeps its rows); the values are the global losses, the
+    same on every rank. Raises
     ``NotImplementedError`` for a task whose forward reaches a point-axis
     op the context does not route."""
     if task.name not in SUPPORTED_TASKS:
@@ -82,9 +88,11 @@ def make_point_sharded_train_step(task, config, mesh: Mesh):
             f"without a sharded route (see {points.ROADMAP_ITEM}); "
             f"supported: {SUPPORTED_TASKS}")
 
-    def step(model, optimizer, batch: dict) -> dict:
+    def step(model, optimizer, batch: dict,
+             generator: torch.Generator | None = None) -> dict:
         n = sum(exchange(int(batch["feat"].shape[1]), mesh))
         with points.context(mesh, n):
-            return train_step(model, optimizer, task, config, batch, mesh=mesh)
+            return train_step(model, optimizer, task, config, batch,
+                              generator=generator, mesh=mesh)
 
     return step
