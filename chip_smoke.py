@@ -77,7 +77,7 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      the kernel library loaded once, no prep worker with CUDA initialised;
  10. training: tgnet_fps at full width and batch 1 on labelled synthetic
      24000-point arch cases: step 1's seven losses on the card against the
-     CPU port's, two seeded runs bit-identical, the loss falling over 8
+     CPU port's (on 6000 of the points), two seeded runs bit-identical, the loss falling over 8
      steps on one batch, the step's median seconds with and without
      deterministic algorithms, its peak memory and one profiled step; one
      epoch through ``cli.train.main`` (K1 and K2 launched in the train
@@ -90,8 +90,9 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      (the boundary engine's frozen fps model launching K1, K2 and K3, its
      resample K1; the bdl step K2; the val pass K3; a cached epoch without
      the frozen model), the host stage's launches and seconds by part a
-     case, the engine identical with K1's plain version, the bdl step on
-     the card against the CPU port's and repeated bit for bit, then the
+     case, the engine identical with K1's plain version, the frozen stage 1
+     and the bdl step on the card against the CPU port's (on 6000 points)
+     and the step repeated bit for bit, then the
      exported weights serving one case through ``cli.infer`` and
      ``cli.evaluate`` printing what ``cal_metric`` gives;
  12. the families: pointnet, pointnetpp, dgcnn, pointtransformer and
@@ -116,7 +117,7 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      exported weights served through ``cli.infer --model_name``;
  14. data-parallel training (``parallel/``, ``train_step(mesh=)``):
      tgnet_fps at full width, global batch 2, on two spawned ranks sharing
-     the card over gloo (``parallel.RankPool``), three steps against the
+     the card over gloo (``parallel.RankPool``), two steps against the
      one-process batch-2 step on the card and against the control, one
      process with its matrix products run one cloud at a time
      (tolerances derived beside ``DP_LOSS_RTOL``), the ranks
@@ -131,20 +132,27 @@ is no CUDA device or when the port is not beside it. Phases, one line each
      of the largest, K2 and K6 launches a rank, seconds and the sharded
      FPS's share;
  16. the point-sharded training step (``parallel/sharded_train.py``):
-     the pointtransformer, pointnet, dgcnn and pointnetpp presets at full
-     width, batch 1 on phase 10's first 24000-point case, each with its
-     point axis split over the two ranks, against the dense one-process
-     step on the card (losses, statistics, parameters; tolerances derived
-     beside ``PS_LOSS_RTOL``) and beside the control, the dense step on
-     the cloud twice (batch 2), and the dense step's own update; two
+     the pointtransformer, pointnet, dgcnn, pointnetpp, tgnet_fps,
+     tgnet_bdl and tsegnet presets at full width, batch 1 on phase 10's
+     first 24000-point case (tgnet_bdl on one labelled 100489-vertex case
+     through its host stage with a frozen random-weight fps model; tsegnet
+     on proposals from a calibrated centroid module, as in phase 13), each
+     with its point axis split over the two ranks, against the dense
+     one-process step on the card (losses, statistics, parameters;
+     tolerances derived beside ``PS_LOSS_RTOL``) and beside the control,
+     the dense step on the cloud twice (batch 2; for the crop models with
+     its products one cloud at a time, ``products_per_cloud``), and the
+     dense step's own update; the crops (each rank's rows of the crop
+     axis) and the host stage's arrays identical to the dense step's, two
      sharded steps from one state bit-identical, the ranks' digests equal,
      K1 and K2 launched a rank as often as in the dense step (each on the
-     gathered coordinates, DGCNN's K2 on the gathered features), seconds a
-     step, the FPS's share and peak memory a rank.
+     gathered coordinates, DGCNN's K2 on the gathered features, the crop
+     stage's on the rank's crops), seconds a step, the FPS's share and
+     peak memory a rank.
 
 Every log line carries the card's nvidia-smi name and power limit. Then
 one JSON line of the kernels, phase 16's summaries again (one a task, then
-the four tasks' seconds a step and peak GiB a rank on one line), the
+the seven tasks' seconds a step and peak GiB a rank on one line), the
 nvidia-smi line again, and last the line ``{"ok": true, "device":
 {...}}``. With ``--parallel`` the run builds the kernels, holds them to
 their plain versions (phase 3) and runs phases 14-16 on the data phase 10
@@ -247,6 +255,10 @@ TRAIN_FALL_STEPS = 8
 TRAIN_REPEAT_STEPS = 3
 TRAIN_TIMED_STEPS = 4
 TRAIN_BF16_STEPS = 3
+# phases 10-11 hold the card to the CPU port on this many points of a
+# 24000-point cloud (a full-width tgnet step on the CPU takes 45-75 s of a
+# call; DGCNN's phase-13 reference is cut the same way)
+CPU_REFERENCE_POINTS = 6000
 # the workflow phase: three labelled synthetic 100489-vertex cases (both
 # jaws), preprocessed, split, and the bdl model trained on them
 WORKFLOW_CASES = (("WF00", "lower"), ("WF01", "upper"), ("WF02", "lower"))
@@ -1529,6 +1541,12 @@ def phase_serve_many(pipes: dict, work: Path, kernels) -> None:
         raise AssertionError(f"kernel library loaded {build.build_info['loads']} times")
 
 
+def cpu_reference_rows(n: int) -> np.ndarray:
+    """The ``CPU_REFERENCE_POINTS`` rows of an ``n``-point cloud, in order,
+    on which phases 10-11 compare the card with the CPU port."""
+    return np.sort(np.random.default_rng(0).permutation(n)[:CPU_REFERENCE_POINTS])
+
+
 def write_train_data(work: Path) -> None:
     """The labelled synthetic arch cases ``TRAIN_CASES`` under
     ``work/train_data`` and their split files."""
@@ -1547,8 +1565,9 @@ def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
     labelled synthetic arch cases (``TRAIN_CASES``):
 
       * step 1's seven losses on the card equal the CPU port's (the same
-        flax-like initial weights from one seed, the same batch) within 1e-3
-        relative, with the CPU step's seconds;
+        flax-like initial weights from one seed, the same batch cut to
+        ``CPU_REFERENCE_POINTS`` points) within 1e-3 relative, with the CPU
+        step's seconds;
       * one epoch through ``cli.train.main`` (two train steps, one val
         pass), every count set to 0 just before: K1 and K2 launched; then
         another train epoch (K1 and K2 in its steps, K3 in none: training
@@ -1610,16 +1629,23 @@ def phase_train(dev, work: Path, ckpts, scan: Path) -> dict:
             secs.append(time.perf_counter() - t0)
         return model, opt, losses, secs
 
-    # step 1 on the card against the CPU port, from the same weights
+    # step 1 on the card against the CPU port, from the same weights, on
+    # CPU_REFERENCE_POINTS points of the case
     model_a, opt_a, losses_a, secs_a = run(TRAIN_REPEAT_STEPS)
-    model_c, opt_c = fresh(torch.device("cpu"))
-    t0 = time.perf_counter()
-    cpu = {k: float(v) for k, v in train_step(model_c, opt_c, task, cfg, batch).items()}
-    cpu_s = time.perf_counter() - t0
-    del model_c, opt_c
-    rel = {k: abs(losses_a[0][k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
-    log("train_step1", what="card vs CPU port, step 1", card=losses_a[0], cpu=cpu,
-        rel_diff=rel, cpu_step_s=cpu_s, card_step_s=secs_a[0])
+    rows = torch.from_numpy(cpu_reference_rows(N_POINTS))
+    small = {k: v[:, rows] for k, v in batch.items()}
+    step1, step1_s = {}, {}
+    for device in (dev, torch.device("cpu")):
+        model_c, opt_c = fresh(device)
+        t0 = time.perf_counter()
+        step1[device.type] = {k: float(v) for k, v in train_step(
+            model_c, opt_c, task, cfg, {k: v.to(device) for k, v in small.items()}).items()}
+        step1_s[device.type] = time.perf_counter() - t0
+        del model_c, opt_c
+    (on_dev, cpu), cpu_s = (step1["cuda"], step1["cpu"]), step1_s["cpu"]
+    rel = {k: abs(on_dev[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    log("train_step1", what=f"card vs CPU port, step 1, {CPU_REFERENCE_POINTS} points",
+        card=on_dev, cpu=cpu, rel_diff=rel, cpu_step_s=cpu_s, card_step_s=secs_a[0])
     if len(cpu) != 7 or max(rel.values()) > 1e-3:
         raise AssertionError(f"train step 1: card vs CPU relative differences {rel}")
 
@@ -1778,8 +1804,10 @@ def phase_workflow(dev, work: Path, ckpts) -> dict:
         launches and seconds by part, no refold and no new kernel layout on
         the second case, and the same clouds from an engine given the same
         frozen outputs with K1's plain version; the frozen stage 1's argmax
-        on the card against the CPU port's >= 0.999;
-      * the bdl step: step 1 within 1e-3 relative of the CPU port's, two
+        on the card against the CPU port's >= 0.999 (on
+        ``CPU_REFERENCE_POINTS`` points of the case);
+      * the bdl step: step 1 within 1e-3 relative of the CPU port's (on
+        ``CPU_REFERENCE_POINTS`` points of the resampled cloud), two
         seeded runs bit-identical, the loss falling over 8 steps, every loss
         finite, the median step, peak memory, one profiled step;
       * the exported fps and bdl .npz serve one case through ``cli.infer``,
@@ -1990,8 +2018,10 @@ def phase_workflow(dev, work: Path, ckpts) -> dict:
     if cache_hit["feat"].shape != outs[0]["feat"].shape:
         raise AssertionError("host stage: a cache hit of another shape")
 
-    # the frozen model's stage 1, card vs CPU port
-    feat = torch.from_numpy(batches[0]["feat"]).to(dev)
+    # the frozen model's stage 1, card vs CPU port, on CPU_REFERENCE_POINTS
+    # points of the case
+    feat = torch.from_numpy(batches[0]["feat"][:, cpu_reference_rows(
+        batches[0]["feat"].shape[1])]).to(dev)
     fps_cfg = {"model_parameter": get_task("tgnet_fps").default_config().model_parameter}
     cpu_model = load_npz(str(ckpts["fps"]), build_tgnet_fps(fps_cfg, device="cpu")).eval()
     with torch.no_grad():
@@ -2028,14 +2058,20 @@ def phase_workflow(dev, work: Path, ckpts) -> dict:
         return model, opt, losses, secs
 
     model_a, opt_a, losses_a, secs_a = run(TRAIN_REPEAT_STEPS)
-    model_c, opt_c = fresh_model(torch.device("cpu"))
-    t0 = time.perf_counter()
-    cpu = {k: float(v) for k, v in train_step(model_c, opt_c, task, cfg, batch).items()}
-    cpu_step_s = time.perf_counter() - t0
-    del model_c, opt_c
-    rel = {k: abs(losses_a[0][k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
-    log("workflow_bdl_step1", card=losses_a[0], cpu=cpu, rel_diff=rel,
-        cpu_step_s=cpu_step_s)
+    rows = torch.from_numpy(cpu_reference_rows(batch["feat"].shape[1]))
+    small = {k: v[:, rows] for k, v in batch.items()}
+    step1, step1_s = {}, {}
+    for device in (dev, torch.device("cpu")):
+        model_c, opt_c = fresh_model(device)
+        t0 = time.perf_counter()
+        step1[device.type] = {k: float(v) for k, v in train_step(
+            model_c, opt_c, task, cfg, {k: v.to(device) for k, v in small.items()}).items()}
+        step1_s[device.type] = time.perf_counter() - t0
+        del model_c, opt_c
+    (got, cpu), cpu_step_s = (step1["cuda"], step1["cpu"]), step1_s["cpu"]
+    rel = {k: abs(got[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    log("workflow_bdl_step1", points=CPU_REFERENCE_POINTS, card=got, cpu=cpu,
+        rel_diff=rel, cpu_step_s=cpu_step_s)
     if len(cpu) != 7 or max(rel.values()) > 1e-3:
         raise AssertionError(f"bdl step 1: card vs CPU relative differences {rel}")
     model_b, _, losses_b, _ = run(TRAIN_REPEAT_STEPS)
@@ -2690,7 +2726,7 @@ def step_phases(model, opt, task, cfg, batch) -> dict:
 # the parallel phases (14, 15) on two ranks sharing the one card over gloo
 # (parallel/distributed.py's backend rule), with one more rank alone on it
 # over NCCL
-DP_RANKS, DP_STEPS = 2, 3
+DP_RANKS, DP_STEPS = 2, 2
 # phase 14's tolerances, from the split BatchNorm sums: the data-parallel
 # step sums each rank's rows and then the two partial sums, where one
 # process sums the global batch at once. Two orders of a float32 sum of n
@@ -3203,6 +3239,17 @@ def phase_parallel(dev, work: Path) -> dict:
 # statistics, the control's and the ranks', are held to
 # ``PS_STAT_SCALE`` times the bound (2.2x the control's reading).
 PS_STAT_SCALE = {"dgcnn": 20.0}
+#
+# tsegnet's parameters. Its PointNet++ towers max-pool at every level, and
+# its crop rows take the centroid backbone's features, so its update sits
+# on kinks within rounding of the step (tests/test_torch_port_train_
+# families_steps.py): on the card (NVIDIA H100 80GB HBM3, 700.00 W) the
+# control moved the update by 1.08e-2 of it in L2 and a parameter by
+# 2.05e-2 (1.04 times ``PS_PARAM_TOL`` of the largest), the ranks by
+# 1.04e-2 and 1.13e-2 (0.57 times it). Its parameters and its update are
+# held to ``PS_PARAM_SCALE`` times those bounds (1.9 times the control's
+# reading).
+PS_PARAM_SCALE = {"tsegnet": 2.0}
 PS_RANKS = 2
 PS_LOSS_RTOL = 3.2e-4
 PS_STAT_RTOL, PS_STAT_ATOL = 2e-4, 1e-5
@@ -3223,31 +3270,89 @@ PS_UPDATE_TOL = 5e-2       # of the dense step's largest update, if smaller
 # no bound on the parameters would hold. DGCNN keeps its dropout (0.5):
 # the dense step, the control (one cloud's mask drawn, used for both
 # copies: ``_tile_dropout``) and the ranks draw one mask from one seed.
-PS_TASKS = ("pointtransformer", "pointnet", "dgcnn", "pointnetpp")
+# The crop models (tgnet_fps, tgnet_bdl, tsegnet) are held by the same
+# bounds beside the same control, its products run one cloud at a time
+# (``products_per_cloud``): the batched centroid ``einsum`` over the cloud
+# twice rounds otherwise and reorders crop near-ties (phase 14), and the
+# stage-2 products then take the crop rows of one cloud, as the dense step
+# does. tgnet_fps and tgnet_bdl step with their presets' SGD (the
+# pointtransformer preset's), tsegnet with it in place of its Adam, as the
+# families do.
+PS_TASKS = ("pointtransformer", "pointnet", "dgcnn", "pointnetpp", "tgnet_fps",
+            "tgnet_bdl", "tsegnet")
+PS_CROP_TASKS = ("tgnet_fps", "tgnet_bdl", "tsegnet")
 PS_DROPOUT_SEED = 15
 # where each task's FPS is timed (the module whose ``farthest_point_sample``
 # its model calls)
 PS_FPS_MODULES = {"pointtransformer": "models.point_transformer.backbone",
-                  "pointnetpp": "nn.set_abstraction"}
+                  "pointnetpp": "nn.set_abstraction",
+                  "tgnet_fps": "models.point_transformer.backbone",
+                  "tsegnet": "nn.set_abstraction"}
 # a dense step's K1 / K2 launches (PERF.md's "family train" column): the
 # families' FPS and kNN, each launched once a call
 PS_DENSE_LAUNCHES = {"pointtransformer": {"fps": 4, "knn_select": 17},
                      "pointnet": {"fps": 0, "knn_select": 0},
                      "dgcnn": {"fps": 0, "knn_select": 3},
-                     "pointnetpp": {"fps": 3, "knn_select": 3}}
+                     "pointnetpp": {"fps": 3, "knn_select": 3},
+                     "tgnet_fps": {"fps": 8, "knn_select": 42},
+                     "tgnet_bdl": {"fps": 0, "knn_select": 4},
+                     "tsegnet": {"fps": 9, "knn_select": 9}}
 
 
-def _ps_config(name: str):
-    """The task and its preset for phase 16: the preset's widths; the
-    families with the pointtransformer preset's SGD."""
+def _ps_config(name: str, mp: dict | None = None):
+    """The task and its preset for phase 16: the preset's widths (with the
+    ``model_parameter`` entries ``mp``); the other tasks with the
+    pointtransformer preset's SGD."""
     from toothgroupnetwork_tpu_torch.models import get_task
 
     task = get_task(name)
     cfg = task.default_config()
+    cfg.model_parameter.update(copy.deepcopy(mp or {}))
     if name != "pointtransformer":
         sgd = get_task("pointtransformer").default_config().optimizer
         cfg.optimizer = copy.deepcopy(sgd)
     return task, cfg
+
+
+def _ps_bdl_inputs(dev, work: Path) -> tuple[dict, dict]:
+    """tgnet_bdl's inputs for phase 16, as phase 11 writes them: one
+    labelled 100489-vertex case, preprocessed on the card to 24000 points,
+    and a frozen fps model of random weights (``make_weights``). Returns
+    (the loader's batch of the case, the ``model_parameter`` entries that
+    name the case's obj/json roots, no cache, and the frozen model)."""
+    from synthetic import write_synthetic_case
+
+    from toothgroupnetwork_tpu_torch.data import DentalScanDataset, collate_batch
+    from toothgroupnetwork_tpu_torch.data.preprocess import preprocess_dir
+    from toothgroupnetwork_tpu_torch.models import get_task
+
+    src = work / "ps_bdl"
+    write_synthetic_case(str(src), "PS00", "lower", n_side=N_SIDE, seed=40)
+    preprocess_dir(str(src / "objs"), str(src / "jsons"), str(src / "processed"),
+                   verbose=False, device=dev)
+    fps_npz = work / "fps.npz"
+    if not fps_npz.exists():
+        make_weights(work)
+    mp = get_task("tgnet_bdl").default_config().model_parameter
+    info = dict(mp["boundary_sampling_info"], orginal_data_obj_path=str(src / "objs"),
+                orginal_data_json_path=str(src / "jsons"), bdl_cache_path=None)
+    fps_info = dict(mp["fps_model_info"], load_ckpt_path=str(fps_npz))
+    batch = collate_batch([DentalScanDataset(str(src / "processed"))[0]])
+    return batch, {"boundary_sampling_info": info, "fps_model_info": fps_info}
+
+
+def _ps_tsegnet_host_state(dev, state: dict, batch: dict) -> dict:
+    """The state of phase 13's calibrated copy of tsegnet: its centroid
+    module with this batch's statistics and fitted heads (random heads
+    propose no crop), from which the host stage proposes the crops."""
+    task, cfg = _ps_config("tsegnet")
+    m = task.build_module(cfg, device=dev)
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    feat = torch.from_numpy(batch["feat"]).to(dev)
+    mask = torch.from_numpy(batch["mask"]).to(dev)
+    match_running_stats(m.cent_module, feat, mask)
+    fit_centroid_heads(m, feat, np.random.default_rng(13), mask)
+    return _state_np(m)
 
 
 def _ps_generator(device) -> torch.Generator:
@@ -3271,26 +3376,45 @@ def _tile_dropout(model) -> None:
             m.forward = forward
 
 
-def point_sharded_steps(mesh, batch: dict, state: dict, name: str) -> dict:
+def point_sharded_steps(mesh, batch: dict, state: dict, name: str, mp: dict | None = None,
+                        host_state: dict | None = None) -> dict:
     """Phase 16 on one rank: the point-sharded step of task ``name``
-    (``make_point_sharded_train_step``, :func:`_ps_config`'s SGD) on this
-    rank's rows of ``batch``, twice from ``state``. Each run's losses,
-    seconds, the FPS's seconds (the gather and K1, each call synchronised),
-    the K1 / K2 launches (every count set to 0 just before the step), the
-    state digest and the peak memory; rank 0 also returns the state after
-    the first."""
+    (``make_point_sharded_train_step``, :func:`_ps_config`'s SGD, with the
+    ``model_parameter`` entries ``mp``) on this rank's rows of ``batch``,
+    twice from ``state``; for a task with a host stage, this rank's rows of
+    ``host_batch_points`` (rank 0 runs the stage on the whole batch, its
+    model from ``host_state``, or ``state``), kept in the result. Each
+    run's losses, seconds, the FPS's seconds (the gather and K1, each call
+    synchronised), the K1 / K2 launches (every count set to 0 just before
+    the step), the state digest and the peak memory; the first run's crops
+    (this rank's rows of the crop axis); rank 0 also returns the state
+    after the first."""
     import importlib
 
     from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
     from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
-        make_point_sharded_train_step, shard_batch_points)
+        host_batch_points, make_point_sharded_train_step, shard_batch_points)
     from toothgroupnetwork_tpu_torch.pipelines.tgn import use_full_fp32
     from toothgroupnetwork_tpu_torch.train import make_optimizer
 
     use_full_fp32()
-    task, cfg = _ps_config(name)
+    task, cfg = _ps_config(name, mp)
     step = make_point_sharded_train_step(task, cfg, mesh)
-    local = shard_batch_points(batch, mesh)
+    host_rows = None
+    if task.host_stage is None:
+        local = shard_batch_points(batch, mesh)
+    else:
+        model = task.build_module(cfg, device=mesh.device)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in (host_state or state).items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = host_batch_points(task, model, batch, cfg, 0, mesh)
+        torch.cuda.synchronize()
+        host_rows = {k: v.cpu().numpy() for k, v in local.items()
+                     if isinstance(v, torch.Tensor)}
+        host_s = time.perf_counter() - t0
+        del model
     fps_s = []
     where = (importlib.import_module(f"toothgroupnetwork_tpu_torch.{PS_FPS_MODULES[name]}")
              if name in PS_FPS_MODULES else None)
@@ -3305,13 +3429,18 @@ def point_sharded_steps(mesh, batch: dict, state: dict, name: str) -> dict:
         return idx
 
     out = {"runs": [], "mesh": mesh.describe(),
-           "rows": {k: list(v.shape) for k, v in local.items()}}
+           "rows": {k: list(v.shape) for k, v in local.items()
+                    if isinstance(v, torch.Tensor)}}
+    if host_rows is not None:
+        out["host_rows"], out["host_s"] = host_rows, host_s
     if where:
         where.farthest_point_sample = timed_fps
     try:
         for run in range(2):
             model = task.build_module(cfg, device=mesh.device)
             model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+            if run == 0 and name in PS_CROP_TASKS:
+                hook = _crops_hook(model, out)
             opt = make_optimizer(cfg.optimizer, model.parameters())
             gen = _ps_generator(mesh.device)
             fps_s.clear()
@@ -3329,6 +3458,8 @@ def point_sharded_steps(mesh, batch: dict, state: dict, name: str) -> dict:
                 "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30})
             if run == 0 and mesh.rank == 0:
                 out["state1"] = _state_np(model)
+            if run == 0 and name in PS_CROP_TASKS:
+                hook.remove()
             del model, opt
             torch.cuda.empty_cache()
     finally:
@@ -3344,50 +3475,79 @@ def phase_point_sharded_train(dev, work: Path) -> tuple[dict, dict]:
     (pointtransformer: planes 32-512, nsample 36/24/24/24/24, blocks
     2/3/4/6/3, 24000 -> 6000 -> 1500 -> 375 -> 93 points, shards of 12000
     ... 46 / 47 rows; pointnet at scale 2; DGCNN at k 20, emb 1024, dropout
-    0.5; PointNet++ at scale 4, 24000 -> 1024 -> 512 -> 256), batch 1 on
-    phase 10's first 24000-point case, its point axis split over
-    ``PS_RANKS`` ranks sharing the card over gloo (one pool for the four),
-    against the dense one-process step on the card from the same weights:
-    step 1's losses, BatchNorm running statistics and parameters within the
+    0.5; PointNet++ at scale 4, 24000 -> 1024 -> 512 -> 256; tgnet_fps
+    with stage 2 over 16 crops of 3072, 8 a rank; tgnet_bdl's planes 16 /
+    32; tsegnet's 8 crop slots, 4 a rank), batch 1 on phase 10's first
+    24000-point case (tgnet_bdl: its host stage's 24000-point cloud of one
+    labelled 100489-vertex case, ``_ps_bdl_inputs``; tsegnet: with the
+    proposals of its calibrated centroid module,
+    ``_ps_tsegnet_host_state``), its point axis split over ``PS_RANKS``
+    ranks sharing the card over gloo (one pool for the seven), against the
+    dense one-process step on the card from the same weights: step 1's
+    losses, BatchNorm running statistics and parameters within the
     tolerances derived above, beside the control (the dense step on the
-    cloud twice, batch 2) and the dense step's own update; two sharded
-    steps from one state bit-identical; every rank's digest equal; K1 and
-    K2 launched a rank as often as in the dense step; seconds a step, the
-    FPS's share, peak memory a rank. Returns each task's launches a rank
-    and step, and the phase's summary by task."""
+    cloud twice, batch 2) and the dense step's own update; the crop
+    models' crops and the host stages' arrays identical to the dense
+    step's; two sharded steps from one state bit-identical; every rank's
+    digest equal; K1 and K2 launched a rank as often as in the dense step;
+    seconds a step, the FPS's share, peak memory a rank. Returns each
+    task's launches a rank and step, and the phase's summary by task."""
     from toothgroupnetwork_tpu_torch.data import DentalScanDataset
     from toothgroupnetwork_tpu_torch.parallel import RankPool
 
     item = DentalScanDataset(str(work / "train_data"))[0]
     batch = {k: item[k][None] for k in ("feat", "gt_seg_label", "mask")}
+    bdl_batch, bdl_mp = _ps_bdl_inputs(dev, work)
+    inputs = {"tgnet_bdl": dict(batch=bdl_batch, mp=bdl_mp)}
     launches, summaries = {}, {}
     with RankPool(PS_RANKS, "cuda") as pool:
         for name in PS_TASKS:
-            launches[name], summaries[name] = _point_sharded_task(dev, pool, name, batch)
+            kw = {"batch": batch, **inputs.get(name, {})}
+            launches[name], summaries[name] = _point_sharded_task(dev, pool, name, **kw)
     keys = {name: "point_sharded_train_launches_per_rank_step"
             if name == "pointtransformer"
             else f"point_sharded_train_{name}_launches_per_rank_step" for name in PS_TASKS}
     return {keys[n]: launches[n] for n in PS_TASKS}, summaries
 
 
-def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
-    """Phase 16 for task ``name`` on ``pool``'s ranks: (a rank's launches a
-    step, the summary), every check raising."""
+def _point_sharded_task(dev, pool, name: str, batch: dict,
+                        mp: dict | None = None) -> tuple[dict, dict]:
+    """Phase 16 for task ``name`` on ``pool``'s ranks (``mp``: its
+    ``model_parameter`` entries): (a rank's launches a step, the summary),
+    every check raising. A task with a host stage runs it once here, on the
+    loader's ``batch``, for the dense step and the control; the ranks run
+    it through ``host_batch_points``."""
     from toothgroupnetwork_tpu_torch.ops.kernels import fps, knn
     from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
+    from toothgroupnetwork_tpu_torch.train.trainer import apply_host_stage
     from toothgroupnetwork_tpu_torch.utils.weights import init_like_flax_
 
     t_phase = time.perf_counter()
-    task, cfg = _ps_config(name)
+    task, cfg = _ps_config(name, mp)
     model = task.build_module(cfg, device="cpu")
     init_like_flax_(model, torch.Generator().manual_seed(cfg.seed))
     state = _state_np(model)
+    host_state = _ps_tsegnet_host_state(dev, state, batch) if name == "tsegnet" else None
+    loader_batch, host_s = batch, None
+    if task.host_stage is not None:
+        model = task.build_module(cfg, device=dev)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in (host_state or state).items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = apply_host_stage(task, model, batch, cfg, 0)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        batch = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    del model
 
     def dense_step(b: dict, control: bool = False) -> dict:
         model = task.build_module(cfg, device=dev)
         model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
         if control:
             _tile_dropout(model)
+        out = {}
+        hook = _crops_hook(model, out) if name in PS_CROP_TASKS else None
         opt = make_optimizer(cfg.optimizer, model.parameters())
         on_card = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
         gen = _ps_generator(dev)
@@ -3395,13 +3555,17 @@ def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
         fps.fps.launches = knn.knn_select.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vals = train_step(model, opt, task, cfg, on_card, generator=gen)
+        with (products_per_cloud(2) if control and hook else contextlib.nullcontext()):
+            vals = train_step(model, opt, task, cfg, on_card, generator=gen)
         torch.cuda.synchronize()
-        out = {"s": time.perf_counter() - t0,
-               "losses": {k: float(v) for k, v in vals.items()},
-               "launches": {"fps": fps.fps.launches, "knn_select": knn.knn_select.launches},
-               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-               "state1": _state_np(model)}
+        out.update({"s": time.perf_counter() - t0,
+                    "losses": {k: float(v) for k, v in vals.items()},
+                    "launches": {"fps": fps.fps.launches,
+                                 "knn_select": knn.knn_select.launches},
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                    "state1": _state_np(model)})
+        if hook:
+            hook.remove()
         del model, opt
         torch.cuda.empty_cache()
         return out
@@ -3409,8 +3573,29 @@ def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
     dense = dense_step(batch)
     control = dense_step({k: np.concatenate([v, v]) for k, v in batch.items()}, True)
     t0 = time.perf_counter()
-    ranks = pool.run(point_sharded_steps, batch, state, name)
+    ranks = pool.run(point_sharded_steps, loader_batch, state, name, mp, host_state)
     pool_s = time.perf_counter() - t0
+    crops_same = host_same = None
+    if name in PS_CROP_TASKS:
+        want = dense["crops"].reshape(-1, dense["crops"].shape[-1])
+        got = np.concatenate([r["crops"].reshape(-1, want.shape[-1]) for r in ranks])
+        crops_same = {"ranks": bool(np.array_equal(got, want)),
+                      "control": bool(np.array_equal(
+                          control["crops"].reshape(-1, want.shape[-1]),
+                          np.concatenate([want, want])))}
+    if task.host_stage is not None:
+        n = batch["feat"].shape[1]
+
+        def rank_arrays(k):
+            """The ranks' arrays of ``k``: their rows joined where it has the
+            point axis, else each rank's whole array."""
+            parts = [r["host_rows"][k] for r in ranks]
+            if batch[k].ndim >= 2 and batch[k].shape[1] == n:
+                return [np.concatenate(parts, axis=1)]
+            return parts
+
+        host_same = {k: all(np.array_equal(a, batch[k]) for a in rank_arrays(k))
+                     for k in batch}
 
     runs = [r["runs"] for r in ranks]
     want = dense["state1"]
@@ -3419,7 +3604,8 @@ def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
     largest = max(float(np.abs(want[k]).max()) for k in params)
     update = {k: want[k] - state[k] for k in params}
     max_update = max(float(np.abs(u).max()) for u in update.values())
-    param_bound = min(PS_PARAM_TOL * largest, PS_UPDATE_TOL * max_update)
+    scale = PS_PARAM_SCALE.get(name, 1.0)
+    param_bound = scale * min(PS_PARAM_TOL * largest, PS_UPDATE_TOL * max_update)
 
     def vs_dense(got: dict, losses: dict, held: list) -> dict:
         """Where ``got`` (a state after step 1) and ``losses`` part from
@@ -3456,14 +3642,16 @@ def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
         "control_vs_dense": {k: v for k, v in ctrl.items() if not k.startswith("worst")},
         "param_largest": largest, "max_update": max_update,
         "max_update_over_largest": max_update / largest, "param_bound": param_bound,
-        "stat_bound_scale": PS_STAT_SCALE.get(name, 1.0),
+        "stat_bound_scale": PS_STAT_SCALE.get(name, 1.0), "param_bound_scale": scale,
         "repeat_identical": repeat, "ranks_identical": same,
         "launches_per_rank_step": launches, "dense_launches": expect,
         "step_s": [[x["s"] for x in r] for r in runs],
         "fps_share": [[x["fps_s"] / x["s"] for x in r] for r in runs],
         "rank_peak_gib": [[x["peak_gib"] for x in r] for r in runs],
         "dense_step_s": dense["s"], "dense_peak_gib": dense["peak_gib"],
-        "control_step_s": control["s"]}
+        "control_step_s": control["s"], "crops_identical": crops_same,
+        "host_stage_identical": host_same, "host_stage_s": host_s,
+        "rank_host_stage_s": [r.get("host_s") for r in ranks]}
     log("point_sharded_train", **summary, mesh=ranks[0]["mesh"],
         rows=[r["rows"] for r in ranks], sharded_worst=sharded, control_worst=ctrl,
         fps_s=[[x["fps_s"] for x in r] for r in runs], losses=runs[0][0]["losses"],
@@ -3478,11 +3666,15 @@ def _point_sharded_task(dev, pool, name: str, batch: dict) -> tuple[dict, dict]:
         if (max(got["loss_rel_diff"].values()) > PS_LOSS_RTOL
                 or got["stat_diff_over_tol"] > PS_STAT_SCALE.get(name, 1.0)
                 or got["param_max_diff"] > param_bound
-                or got["param_l2_over_update"] > PS_L2_TOL):
+                or got["param_l2_over_update"] > scale * PS_L2_TOL):
             raise AssertionError(f"{name} {what} state vs the dense step: {got}")
     if not (repeat and same):
         raise AssertionError(f"{name} point-sharded steps not bit-identical: repeat "
                              f"{repeat}, ranks {same}")
+    if crops_same is not None and not all(crops_same.values()):
+        raise AssertionError(f"{name} crops differ from the dense step's: {crops_same}")
+    if host_same is not None and not all(host_same.values()):
+        raise AssertionError(f"{name} host stage differs from the dense one: {host_same}")
     if any(x != expect for r in launches for x in r):
         raise AssertionError(f"{name} point-sharded launches {launches} != {expect}")
     if expect != PS_DENSE_LAUNCHES[name]:

@@ -45,7 +45,9 @@ tests/torch_port_parallel_ranks.py, which imports no JAX).
     ``include_self`` and the dropout draw, each ``array_equal``;
   * ``shard_batch_points`` splitting the point axis (the analog of JAX's
     ``test_batch_leaves_sharded``);
-  * the tasks and ops without a point-sharded route raising.
+  * the ops without a point-sharded route raising (the crop models' steps
+    are tests/test_torch_port_sharded_train_tgnet.py's and
+    tests/test_torch_port_sharded_train_tsegnet.py's).
 """
 
 import sys
@@ -69,10 +71,8 @@ from test_torch_port_train_families import (PAD, ReplayedSelection,  # noqa: E40
                                             _modules, _variables)
 from test_torch_port_train_families_steps import CANCELLED, jax_state  # noqa: E402
 
-from toothgroupnetwork_tpu_torch.models import get_task
 from toothgroupnetwork_tpu_torch.parallel import Mesh, points
-from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
-    POINT_AXIS, SUPPORTED_TASKS, make_point_sharded_train_step, shard_batch_points)
+from toothgroupnetwork_tpu_torch.parallel.sharded_train import POINT_AXIS, shard_batch_points
 from toothgroupnetwork_tpu_torch.utils.weights import from_jax_variables
 
 ARCH = {"planes": [8, 16], "stride": [1, 4], "nsample": [8, 8], "blocks": [2, 2],
@@ -483,16 +483,6 @@ def test_shard_batch_points_splits_the_point_axis():
     np.testing.assert_array_equal(np.concatenate(seen, axis=1), b["feat"])
     uneven = shard_batch_points(_batch(90), _fake_mesh(3, 4))
     assert uneven["feat"].shape[1] == 90 - 3 * 90 // 4
-
-
-@pytest.mark.parametrize("name", ["tgnet_fps", "tgnet_bdl", "tsegnet"])
-def test_tasks_without_a_sharded_route_raise(name):
-    """The tasks with crops or a host stage raise, naming the ROADMAP
-    item."""
-    assert name not in SUPPORTED_TASKS
-    task = get_task(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_point_sharded_train_step(task, task.default_config(), _fake_mesh(0, 2))
 
 
 @pytest.mark.parametrize("op", ["masked_mean_other_axis", "masked_max_other_axis",

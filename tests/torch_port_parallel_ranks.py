@@ -287,14 +287,17 @@ def trainer_retry_job(mesh, d, name, mp, data_dir, ckpt, fail_rank):
 # ------------------------------------------------------------ point-sharded training
 
 def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01, name="pointtransformer",
-                           dropout=None, seed=None):
+                           dropout=None, seed=None, dense=True):
     """One step of the point-sharded step of task ``name`` (SGD, momentum
     0.9, ``lr``) over the mesh of ``d`` ranks from ``state``, each rank on
     its rows of ``batch``; on rank 0 also the dense one-process step.
     ``dropout``: the model's dropout rate, if not the preset's; ``seed``:
-    the dropout generator's seed, the same for both steps. Returns (this
-    rank's snapshot, rank 0's dense one); a DGCNN snapshot also holds the
-    step's neighbour lists (``"knn"``: this rank's rows, in call order)."""
+    the dropout generator's seed, the same for both steps; ``dense``:
+    False leaves the dense step out. Returns (this rank's snapshot, rank
+    0's dense one or None); a DGCNN snapshot also holds the
+    step's neighbour lists (``"knn"``: this rank's rows, in call order), a
+    crop model's its crops (``"crops"``: ``nn_crop_indexes``, this rank's
+    rows of the crop axis as ``[rows, S]``)."""
     from toothgroupnetwork_tpu_torch.parallel.sharded_train import (
         make_point_sharded_train_step, shard_batch_points)
     from toothgroupnetwork_tpu_torch.train import make_optimizer, train_step
@@ -315,6 +318,10 @@ def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01, name="pointtransf
         opt = make_optimizer(cfg.optimizer, model.parameters())
         gen = None if seed is None else torch.Generator().manual_seed(seed)
         lists: list = []
+        crops: list = []
+        model.register_forward_hook(lambda _m, _a, out: crops.append(
+            _np(out["nn_crop_indexes"]).reshape(-1, out["nn_crop_indexes"].shape[-1]))
+            if "nn_crop_indexes" in out else None)
         with _recorded_selections(lists):
             if sharded:
                 values = make_point_sharded_train_step(task, cfg, m)(
@@ -325,10 +332,12 @@ def point_sharded_step_job(mesh, d, mp, batch, state, lr=0.01, name="pointtransf
         got = _snapshot(model, {f"{k}_train": float(v) for k, v in values.items()})
         if lists:
             got["knn"] = lists
+        if crops:
+            got["crops"] = crops[0]
         return got
 
     got = run(True)
-    return got, (run(False) if m.rank == 0 else None)
+    return got, (run(False) if dense and m.rank == 0 else None)
 
 
 @contextlib.contextmanager
@@ -463,3 +472,118 @@ def dropout_draw_job(mesh, d, shape, p, seed):
     lo, hi = points.rows(shape[1], m)
     with points.context(m, shape[1]), data_parallel.context(m):
         return _np(drop(torch.ones((shape[0], hi - lo) + tuple(shape[2:]))))
+
+
+def crop_rows_gather_job(mesh, d, x, idx, w):
+    """``crop_rows_gather`` of this rank's crop rows of ``idx`` ``[B, K,
+    S]`` (global indices, every rank's whole crop set) from its rows of
+    ``x`` ``[B, N, C]``, and the gradient of the rows' sum weighted by its
+    crop rows of ``w`` ``[B·K, S, C]``."""
+    from toothgroupnetwork_tpu_torch.parallel import points
+    from toothgroupnetwork_tpu_torch.parallel.sharded_ops import crop_rows_gather
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    xl = _rows(x, m).requires_grad_(True)
+    lo, hi = points.rows(idx.shape[0] * idx.shape[1], m)
+    out = crop_rows_gather(xl, _t(idx), lo, hi, m, x.shape[1])
+    (out * _t(w[lo:hi])).sum().backward()
+    return {"out": _np(out), "grad": _np(xl.grad)}
+
+
+def centroid_dist_job(mesh, d, inputs):
+    """tsegnet's ``centroid_dist_loss`` inside the point-sharded context
+    and the data-parallel one (as in the step) on this rank's rows of the
+    l3 points, and the gradient of the loss with respect to its rows of the
+    offsets and points, divided by D as the step's all-reduce divides it."""
+    from toothgroupnetwork_tpu_torch.losses.tsg_loss import centroid_dist_loss
+    from toothgroupnetwork_tpu_torch.parallel import data_parallel, points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    off = _rows(inputs["pred_offset"], m).requires_grad_(True)
+    xyz = _rows(inputs["sample_xyz"], m).requires_grad_(True)
+    with points.context(m, inputs["sample_xyz"].shape[1]), data_parallel.context(m):
+        loss = centroid_dist_loss(off, xyz, _rows(inputs["pred_distance"], m),
+                                  _t(inputs["centroids"]), _t(inputs["cent_valid"]),
+                                  _rows(inputs["mask"], m))
+    loss.backward()
+    return {"loss": float(loss), "offset_grad": _np(off.grad / m.size),
+            "xyz_grad": _np(xyz.grad / m.size)}
+
+
+class StandInCentroids(torch.nn.Module):
+    """A tsegnet model whose ``centroid_forward`` returns recorded outputs
+    (numpy), counting its calls."""
+
+    def __init__(self, outputs):
+        super().__init__()
+        self.outputs, self.calls = outputs, 0
+        self.anchor = torch.nn.Parameter(torch.zeros(1))
+
+    def centroid_forward(self, feat, mask=None):
+        self.calls += 1
+        return {k: _t(v) for k, v in self.outputs.items()}
+
+
+def host_stage_job(mesh, d, name, batches, outputs=None, info=None):
+    """``host_batch_points`` over ``batches`` in turn (optimizer steps 0,
+    1, ...) inside the data-parallel context, as a trainer holds it:
+    tsegnet's host stage on a stand-in centroid forward (``outputs``), or
+    tgnet_bdl's boundary engine on the CPU (``info``: its
+    ``boundary_sampling_info``), the ground-truth labels standing in for
+    the frozen model's. Returns this rank's sharded batches (numpy), its
+    stage calls and, for tgnet_bdl, its engine's generator state."""
+    from toothgroupnetwork_tpu_torch.models import tasks
+    from toothgroupnetwork_tpu_torch.parallel import data_parallel
+    from toothgroupnetwork_tpu_torch.parallel.sharded_train import host_batch_points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    task = get_task(name)
+    cfg = task.default_config()
+    calls = []
+    if name == "tsegnet":
+        model = StandInCentroids(outputs)
+    else:
+        cfg.model_parameter["boundary_sampling_info"].update(info)
+        model = torch.nn.Linear(1, 1)
+        engine = tasks.bdl_engine(cfg, "cpu")
+        engine.rng = np.random.default_rng(0)
+
+        def labels(_cfg, _feat, lab):
+            calls.append(1)
+            return lab.astype(np.float64)
+        engine._stage_labels = labels
+    out = []
+    with data_parallel.context(m):
+        for step, b in enumerate(batches):
+            got = host_batch_points(task, model, b, cfg, step, m)
+            out.append({k: _np(v) for k, v in got.items() if isinstance(v, torch.Tensor)})
+    if name == "tsegnet":
+        return out, model.calls, None
+    return out, len(calls), engine.rng.bit_generator.state
+
+
+class _FailingCentroids(StandInCentroids):
+    def centroid_forward(self, feat, mask=None):
+        raise OSError("a scan could not be read")
+
+
+def host_stage_failure_job(mesh, d, batch):
+    """``host_batch_points`` with a tsegnet host stage that fails on rank
+    0: the exception's type name on each rank."""
+    from toothgroupnetwork_tpu_torch.parallel.sharded_train import host_batch_points
+
+    m = sub(mesh, d)
+    if m is None:
+        return None
+    task = get_task("tsegnet")
+    try:
+        host_batch_points(task, _FailingCentroids({}), batch, None, 0, m)
+    except Exception as e:   # noqa: BLE001 -- the test reads its type
+        return type(e).__name__
+    return None

@@ -1,13 +1,20 @@
 """tgnet offset and chamfer losses (counterpart of
 toothgroupnetwork_tpu/losses/tgn_loss.py), in the JAX package's masked-dense
 form: per-tooth masks ``[B, 16, N]`` from the labels, teeth with fewer than
-5 points left out of the centroid term."""
+5 points left out of the centroid term.
+
+In the point-sharded step (``parallel/points.py``) the points are this
+rank's rows of each cloud: the tooth centroids and counts come from the
+all-gathered coordinates and labels (``points.whole``), bit-equal to the
+dense step's, and each sum over the point axis is summed over the shards
+(``points.psum``, the identity outside that step)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..parallel import data_parallel
+from ..parallel import points as point_shards
 
 _N_TEETH = 16
 _BIG = 1e9
@@ -29,6 +36,19 @@ def _tooth_centroids(xyz, tooth_f, counts):
     return sums / torch.clamp_min(counts, 1.0)[..., None]
 
 
+def _teeth(xyz, gt_label, point_mask):
+    """(per-tooth masks of these points ``[B, 16, n]``, the counts ``[B,
+    16]``, their validity, the centroids ``[B, 16, 3]``): the counts,
+    validity and centroids those of the whole cloud (gathered in the
+    point-sharded step)."""
+    whole_f, counts, valid = _tooth_masks(point_shards.whole(gt_label),
+                                          point_shards.whole(point_mask))
+    cent = _tooth_centroids(point_shards.whole(xyz), whole_f, counts)
+    if point_shards.active() is not None:
+        whole_f = _tooth_masks(gt_label, point_mask)[0]
+    return whole_f, counts, valid, cent
+
+
 def batch_center_offset_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
                              gt_label: torch.Tensor,
                              point_mask: torch.Tensor | None = None):
@@ -39,12 +59,11 @@ def batch_center_offset_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
     points whose offset is longer than 2e-4."""
     xyz = xyz.to(torch.float32)
     pred_offset = pred_offset.to(torch.float32)
-    tooth_f, counts, valid = _tooth_masks(gt_label, point_mask)
-    cent = _tooth_centroids(xyz, tooth_f, counts)                      # [B,16,3]
+    tooth_f, counts, valid, cent = _teeth(xyz, gt_label, point_mask)   # [B,16,3]
 
     moved = xyz + pred_offset
     d2 = ((moved[:, None, :, :] - cent[:, :, None, :]) ** 2).sum(dim=-1)  # [B,16,N]
-    per_tooth = (d2 * tooth_f).sum(dim=-1) / torch.clamp_min(counts, 1.0)
+    per_tooth = point_shards.psum((d2 * tooth_f).sum(dim=-1)) / torch.clamp_min(counts, 1.0)
     vf = valid.to(torch.float32)
     centroid_loss = data_parallel.ratio((per_tooth * vf).sum(), vf.sum(), 1.0)
 
@@ -57,8 +76,8 @@ def batch_center_offset_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
     sq = (dot - 1.0) ** 2
     moving = (off_norm > 2e-4)[:, None, :]
     sel = tooth_f * moving * vf[..., None]
-    n_sel = sel.sum(dim=-1)
-    per_tooth_dir = (sq * sel).sum(dim=-1) / torch.clamp_min(n_sel, 1.0)
+    n_sel = point_shards.psum(sel.sum(dim=-1))
+    per_tooth_dir = point_shards.psum((sq * sel).sum(dim=-1)) / torch.clamp_min(n_sel, 1.0)
     has_dir = (n_sel > 0).to(torch.float32)
     dir_loss = data_parallel.ratio((per_tooth_dir * has_dir).sum(), has_dir.sum(), 1.0)
     return centroid_loss, dir_loss
@@ -72,8 +91,7 @@ def batch_chamfer_distance_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
     nearest, averaged per cloud, then over the batch."""
     xyz = xyz.to(torch.float32)
     pred_offset = pred_offset.to(torch.float32)
-    tooth_f, counts, valid = _tooth_masks(gt_label, point_mask)
-    cent = _tooth_centroids(xyz, tooth_f, counts)
+    _, _, valid, cent = _teeth(xyz, gt_label, point_mask)
 
     moved = xyz + pred_offset
     d2 = ((moved[:, :, None, :] - cent[:, None, :, :]) ** 2).sum(dim=-1)  # [B,N,16]
@@ -85,8 +103,11 @@ def batch_chamfer_distance_loss(pred_offset: torch.Tensor, xyz: torch.Tensor,
     if point_mask is not None:
         fg = fg & point_mask.to(torch.bool)
     fgf = fg.to(torch.float32)
-    per_cloud = (ratio * fgf).sum(dim=-1) / torch.clamp_min(fgf.sum(dim=-1), 1.0)
+    per_cloud = (point_shards.psum((ratio * fgf).sum(dim=-1))
+                 / torch.clamp_min(point_shards.psum(fgf.sum(dim=-1)), 1.0))
     # a mean of per-cloud values over this rank's equal slice of the batch:
     # the data-parallel step's mean over the ranks makes it the global mean,
-    # value and gradient, so it needs no collective of its own
+    # value and gradient, so it needs no collective of its own; in the
+    # point-sharded step each value is its whole cloud's (psummed), the
+    # same on every rank, and that mean leaves it as it is
     return per_cloud.mean()

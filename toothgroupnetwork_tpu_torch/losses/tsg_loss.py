@@ -17,7 +17,10 @@
 
 Ground-truth centroids come as fixed ``[B, 16, 3]`` rows and a validity
 mask (invalid rows at distance 1e9); the crop terms are masked by crop
-validity."""
+validity. In the point-sharded step the l3 points are this rank's rows:
+the per-point terms' sums go through ``data_parallel.ratio``, and each
+centroid's nearest moved point is the minimum over every rank's rows
+(``points.pmax`` of the negation)."""
 
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from torch.nn import functional as F
 
 from ..parallel import data_parallel
+from ..parallel import points as point_shards
 
 _BIG = 1e9
 
@@ -67,11 +71,14 @@ def centroid_dist_loss(pred_offset, sample_xyz, pred_distance, centroids,
     loss = data_parallel.ratio((min_d * sf).sum(), sf.sum(), 1.0)
 
     # each centroid to its nearest moved point (amin: ties share the
-    # gradient, as jnp.min's does)
+    # gradient, as jnp.min's does; over the shards, pmax's split)
     d2 = ((centroids[:, :, None, :] - moved[:, None, :, :]) ** 2).sum(-1)
     if mask is not None:
         d2 = torch.where(mask.to(torch.bool)[:, None, :], d2, _BIG)
-    min_c = d2.amin(dim=-1)                                              # [B,16]
+    if point_shards.active() is None:
+        min_c = d2.amin(dim=-1)                                          # [B,16]
+    else:
+        min_c = -point_shards.pmax(-d2.transpose(1, 2))
     cf = ((min_c <= 0.2) & cent_valid).to(min_c.dtype)
     return loss + data_parallel.ratio((min_c * cf).sum(), cf.sum(), 1.0)
 

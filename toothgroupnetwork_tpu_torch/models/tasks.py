@@ -16,8 +16,8 @@ import torch
 from ..losses import (batch_center_offset_loss, batch_chamfer_distance_loss,
                       cbl_loss, centroid_loss, first_seg_loss, id_loss,
                       second_seg_loss, tooth_class_loss)
-from ..ops import index_points
 from ..parallel import data_parallel
+from ..parallel import points as point_shards
 from ..train.config import OptimizerConfig, SchedulerConfig, TrainConfig
 from .dgcnn import DGCNNSeg
 from .point_transformer import PointTransformerSeg
@@ -103,12 +103,16 @@ def _tgnet_losses(outputs, batch, config: TrainConfig) -> dict:
     half = half_arch_labels(gt)
     crop_gt = binary_crop_labels(outputs["cluster_gt_seg_label"])
 
+    # the crop stage's terms (l2, cbl2) run over this rank's crop rows in the
+    # point-sharded step, the point-axis hooks off (models/tgnet.py)
     l1 = tooth_class_loss(outputs["sem_1"], half, 10, mask)
-    l2 = tooth_class_loss(outputs["sem_2"], crop_gt, 2, outputs["crop_mask"])
+    with point_shards.dense():
+        l2 = tooth_class_loss(outputs["sem_2"], crop_gt, 2, outputs["crop_mask"])
     off_loss, dir_loss = batch_center_offset_loss(outputs["offset_1"], xyz, gt, mask)
     chamf = batch_chamfer_distance_loss(outputs["offset_1"], xyz, gt, mask)
     cbl1 = cbl_loss(outputs["cbl_stages_1"], half, 10, stride)
-    cbl2 = cbl_loss(outputs["cbl_stages_2"], crop_gt, 2, stride)
+    with point_shards.dense():
+        cbl2 = cbl_loss(outputs["cbl_stages_2"], crop_gt, 2, stride)
 
     return {
         "tooth_class_loss_1": (l1, w.get("tooth_class_loss_1", 1.0)),
@@ -385,9 +389,9 @@ def _tsegnet_losses(outputs, batch, config: TrainConfig) -> dict:
     """The centroid losses (dist 1, cent 1, chamfer 0.1) and, when the seg
     module ran, the confidence-weighted seg losses and the 17-way id loss
     against the labels of each proposal's nearest ground-truth centroid."""
-    gt = batch["gt_seg_label"]
-    mask = batch.get("mask")
-    xyz = batch["feat"][..., :3]
+    # the whole clouds' inputs (gathered once in the point-sharded step)
+    xyz, gt, mask = (point_shards.whole(t) for t in (
+        batch["feat"][..., :3], batch["gt_seg_label"], batch.get("mask")))
     w = config.loss_weights
 
     cents, cvalid = gt_tooth_centroids(xyz, gt, mask)                 # [B,16,3]
@@ -404,19 +408,24 @@ def _tsegnet_losses(outputs, batch, config: TrainConfig) -> dict:
 
     centers = outputs["center_points"]                                # [B,K,3]
     b, k = centers.shape[:2]
-    # each proposal's nearest valid ground-truth centroid -> its 1..16 id
-    d2 = ((centers[:, :, None, :] - cents[:, None, :, :]) ** 2).sum(-1)
-    d2 = torch.where(cvalid[:, None, :], d2, 1e9)
-    matched = (d2.argmin(dim=-1) + 1).reshape(b * k)                  # [B*K]
-    crop_gt = index_points(gt[..., None].to(torch.float32),
-                           outputs["nn_crop_indexes"])[..., 0]
-    crop_gt = crop_gt.reshape(b * k, -1).to(torch.int32)              # -1..15
-    bin_label = (crop_gt + 1 == matched[:, None]).to(torch.int32)
+    # the crop terms run over this rank's crop rows [lo, hi) in the
+    # point-sharded step (models/tsegnet.py), the point-axis hooks off
+    lo, hi = point_shards.crop_rows(b * k)
+    with point_shards.dense():
+        # each proposal's nearest valid ground-truth centroid -> its 1..16 id
+        d2 = ((centers[:, :, None, :] - cents[:, None, :, :]) ** 2).sum(-1)
+        d2 = torch.where(cvalid[:, None, :], d2, 1e9)
+        matched = (d2.argmin(dim=-1) + 1).reshape(b * k)[lo:hi]       # [rows]
+        crop_idx = outputs["nn_crop_indexes"].reshape(hi - lo, -1)
+        cloud = torch.arange(lo, hi, device=crop_idx.device) // k
+        crop_gt = gt[cloud[:, None], crop_idx.long()].to(torch.int32)  # -1..15
+        bin_label = (crop_gt + 1 == matched[:, None]).to(torch.int32)
 
-    crop_mask = outputs["crop_mask"]
-    seg_1 = first_seg_loss(outputs["pd_1"], outputs["weight_1"], bin_label, crop_mask)
-    seg_2 = second_seg_loss(outputs["pd_2"], outputs["weight_1"], bin_label, crop_mask)
-    idl = id_loss(outputs["id_pred"], matched, outputs["center_valid"].reshape(b * k))
+        crop_mask = outputs["crop_mask"]
+        seg_1 = first_seg_loss(outputs["pd_1"], outputs["weight_1"], bin_label, crop_mask)
+        seg_2 = second_seg_loss(outputs["pd_2"], outputs["weight_1"], bin_label, crop_mask)
+        idl = id_loss(outputs["id_pred"], matched,
+                      outputs["center_valid"].reshape(b * k)[lo:hi])
     losses.update({
         "seg_1_loss": (seg_1, w.get("seg_1_loss", 1.0)),
         "seg_2_loss": (seg_2, w.get("seg_2_loss", 1.0)),

@@ -5,7 +5,13 @@ train forward that crops around the ground-truth tooth centroids.
 
 The 16 crop slots are fixed (one per tooth class); a missing tooth gets a far
 sentinel centroid, and its crop is masked out of every loss and BatchNorm
-statistic through ``crop_mask``."""
+statistic through ``crop_mask``.
+
+In the point-sharded step (``parallel/points.py``) stage 1 runs on this
+rank's rows of the point axis; the centroids and the crops come from the
+all-gathered inputs, bit-equal to the dense step's, and stage 2 runs on
+this rank's rows of the ``B·16`` crops (the crop outputs hold those rows,
+``nn_crop_indexes`` as ``[rows, S]``)."""
 
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import torch
 from torch import nn
 
 from ..ops import index_points, smallest_k, square_distance
+from ..parallel import points as point_shards
 from .point_transformer.backbone import PointTransformerSeg
 
 N_TEETH = 16
@@ -111,10 +118,19 @@ class TGNet(nn.Module):
         mode the same path runs with the eval kernels (the validation
         pass)."""
         out1 = self.first(feat, mask)
-        centroids, crop_valid = gt_tooth_centroids(feat[..., :3], labels, mask)
-        crop_feat, crop_mask, crop_idx, crop_labels = make_crops(
-            feat, centroids, crop_valid, self.crop_size, mask, extra=labels)
-        out2 = self.second(crop_feat, crop_mask)
+        # the inputs carry no gradient: in the point-sharded step the whole
+        # cloud, gathered once, and this rank's rows of the crop axis
+        lo, hi = point_shards.crop_rows(feat.shape[0] * N_TEETH)
+        feat, labels, mask = (point_shards.whole(t) for t in (feat, labels, mask))
+        with point_shards.dense():
+            centroids, crop_valid = gt_tooth_centroids(feat[..., :3], labels, mask)
+            crop_feat, crop_mask, crop_idx, crop_labels = make_crops(
+                feat, centroids, crop_valid, self.crop_size, mask, extra=labels)
+            if hi - lo < crop_feat.shape[0]:
+                crop_feat, crop_mask, crop_labels = (
+                    t[lo:hi] for t in (crop_feat, crop_mask, crop_labels))
+                crop_idx = crop_idx.reshape(-1, self.crop_size)[lo:hi]
+            out2 = self.second(crop_feat, crop_mask)
         return {
             "sem_1": out1["sem_1"],
             "offset_1": out1["offset_1"],

@@ -18,7 +18,15 @@ centroid backbone, as in the JAX module. The crops select with the plain
 ``ops.smallest_k`` (k = 3072 is far above K2's 64) over the port's
 fixed-order distances (``ops/distance.py``), where the JAX package takes its
 matmul expansion: the two may order exact near-ties at a crop's rim
-differently."""
+differently.
+
+In the point-sharded step (``parallel/points.py``) the centroid module
+runs on this rank's rows of the point axis; the crop selection and the
+crops' coordinates come from the all-gathered cloud, the crops' l0
+features over the ring (``sharded_ops.crop_rows_gather``, their gradient
+returned to the owners), and the seg module runs on this rank's rows of
+the ``B·K`` crops (the crop outputs hold those rows, ``nn_crop_indexes``
+as ``[rows, S]``)."""
 
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from ..nn.layers import Dense, LayerNorm, MaskedBatchNorm
 from ..nn.set_abstraction import (FeaturePropagation, SetAbstraction,
                                   SetAbstractionMsg)
 from ..ops import index_points, smallest_k, square_distance
+from ..parallel import points as point_shards
 from ..postprocess.clustering import dbscan
 
 # crop slots a train batch carries (JAX tsegnet.py:N_CROPS_TRAIN)
@@ -160,16 +169,30 @@ def tsegnet_crops(feat: torch.Tensor, l0_points: torch.Tensor,
     recentred), their l0 features and ddf. Returns (crop_feat ``[B*K, S,
     36]``, crop_mask ``[B*K, S]``, crop_idx ``[B, K, S]``)."""
     b, k = centers.shape[:2]
-    d2 = square_distance(centers.to(torch.float32), feat[..., :3].to(torch.float32))
-    if mask is not None:
-        d2 = d2 + torch.where(mask.to(torch.bool), 0.0, 1e10)[:, None, :]
-    crop_idx, _ = smallest_k(d2, crop_size)
-    crop_xyz = index_points(feat[..., :3], crop_idx).reshape(b * k, crop_size, 3)
-    crop_l0 = index_points(l0_points, crop_idx).reshape(b * k, crop_size, -1)
-    ddf = compute_ddf(crop_xyz, centers.reshape(b * k, 3))
+    mesh = point_shards.active()
+    # in the point-sharded step: the selection over the whole cloud,
+    # gathered once, and this rank's rows of the crop axis
+    lo, hi = point_shards.crop_rows(b * k)
+    feat, whole_mask = point_shards.whole(feat), point_shards.whole(mask)
+    with point_shards.dense():
+        d2 = square_distance(centers.to(torch.float32), feat[..., :3].to(torch.float32))
+        if whole_mask is not None:
+            d2 = d2 + torch.where(whole_mask.to(torch.bool), 0.0, 1e10)[:, None, :]
+        crop_idx, _ = smallest_k(d2, crop_size)
+        crop_xyz = index_points(feat[..., :3], crop_idx).reshape(b * k, crop_size, 3)
+    if mesh is None:
+        crop_l0 = index_points(l0_points, crop_idx).reshape(b * k, crop_size, -1)
+    else:
+        from ..parallel.sharded_ops import crop_rows_gather
+
+        crop_l0 = crop_rows_gather(l0_points, crop_idx, lo, hi, mesh,
+                                   point_shards.global_size(l0_points.shape[1]))
+        crop_idx = crop_idx.reshape(b * k, crop_size)[lo:hi]
+    crop_xyz = crop_xyz[lo:hi]
+    ddf = compute_ddf(crop_xyz, centers.reshape(b * k, 3)[lo:hi])
     crop_feat = torch.cat([crop_xyz, crop_l0, ddf], dim=-1)
     crop_mask = valid.to(torch.bool)[..., None].expand(b, k, crop_size).reshape(
-        b * k, crop_size)
+        b * k, crop_size)[lo:hi]
     return crop_feat, crop_mask, crop_idx
 
 
@@ -210,7 +233,8 @@ class TSegNetModule(nn.Module):
         crop_feat, crop_mask, crop_idx = tsegnet_crops(
             feat, out["l0_points"], center_points, center_valid, self.crop_size,
             mask)
-        pd_1, weight_1, pd_2, id_pred = self.seg_module(crop_feat, crop_mask)
+        with point_shards.dense():
+            pd_1, weight_1, pd_2, id_pred = self.seg_module(crop_feat, crop_mask)
         out.update({"pd_1": pd_1, "weight_1": weight_1, "pd_2": pd_2,
                     "id_pred": id_pred, "center_points": center_points,
                     "center_valid": center_valid, "nn_crop_indexes": crop_idx,

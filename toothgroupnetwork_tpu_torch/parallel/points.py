@@ -31,6 +31,25 @@ does not route raises :func:`unsupported`, so no rank computes a
 per-shard answer in silence. Outside the context every hook is the
 identity.
 
+The crop models (tgnet, tsegnet) and their losses call three more helpers:
+
+  * :func:`whole` all-gathers an input that carries no gradient (the
+    coordinates, labels and mask), so that the ground-truth centroids and
+    the crop selection (``square_distance`` and ``smallest_k``, which are
+    not routed) run as the dense code on the whole cloud, bit-equal to the
+    dense step;
+  * :func:`crop_rows` names this rank's rows of the crop axis (``B·K``
+    crops, the same floor rule as :func:`bounds`);
+  * :func:`dense` turns the hooks off inside (``active()`` is None) while
+    the step's ``data_parallel`` context stays on: the crop stage runs
+    there on this rank's crop rows, a data-parallel run over crops.
+    tsegnet's crop features carry a gradient into the sharded backbone and
+    come over the ring before it (``sharded_ops.crop_rows_gather``).
+
+The losses sum their per-tooth and per-cloud sums over the shards with
+:func:`psum`, and tsegnet's per-centroid minimum over the sharded l3
+points is :func:`pmax` of the negation.
+
 A shard knows its own row count only; the global count of each point axis
 is resolved from the sizes this step has met (:func:`register`: the batch's
 N, then each FPS sample's M), which every rank registers in the same order.
@@ -47,8 +66,9 @@ import torch.distributed as dist
 if TYPE_CHECKING:
     from .mesh import Mesh
 
-# the queue of the point-sharded step's remaining work (ROADMAP.md, Queue 1)
-ROADMAP_ITEM = "ROADMAP.md Queue 1, the point-sharded training step's next items"
+# where a point-axis op without a route is to be recorded (ROADMAP.md's
+# Queue 3, the port's faults against the reference)
+ROADMAP_ITEM = "ROADMAP.md Queue 3: a point-axis op of the dense step without a route"
 
 
 class _Shards:
@@ -163,6 +183,43 @@ def global_rows(shape: tuple, draw) -> torch.Tensor:
     n = global_size(shape[1])
     lo, hi = rows(n, _ACTIVE.mesh)
     return draw((shape[0], n) + tuple(shape[2:]))[:, lo:hi]
+
+
+@contextlib.contextmanager
+def dense():
+    """The dense point-axis ops inside, on the rows they are given:
+    ``active()`` is None and every hook the identity; the data-parallel
+    context, if any, stays on. The point-sharded step runs its crop stage
+    here, on this rank's rows of the crop axis (:func:`crop_rows`)."""
+    global _ACTIVE
+    before, _ACTIVE = _ACTIVE, None
+    try:
+        yield
+    finally:
+        _ACTIVE = before
+
+
+def whole(x: torch.Tensor | None) -> torch.Tensor | None:
+    """The whole point axis of which this rank holds ``x`` ``[B, n_r,
+    ...]``: every rank's rows, in one all-gather, without a gradient (for
+    inputs: coordinates, labels, masks). ``x`` itself outside the context,
+    None as None."""
+    if _ACTIVE is None or x is None:
+        return x
+    from .sharded_ops import gather_axis
+
+    return gather_axis(x, _ACTIVE.mesh, global_size(x.shape[1]))
+
+
+def crop_rows(n: int) -> tuple[int, int]:
+    """(start, stop) of this rank's rows of an ``n``-row crop axis whose
+    rows every rank could compute whole: :func:`rows` inside the context,
+    ``(0, n)`` outside it."""
+    if _ACTIVE is None:
+        return 0, n
+    if n < _ACTIVE.mesh.size:
+        raise ValueError(f"{n} crops over {_ACTIVE.mesh.size} ranks leave a rank none")
+    return rows(n, _ACTIVE.mesh)
 
 
 def unsupported(op: str) -> None:

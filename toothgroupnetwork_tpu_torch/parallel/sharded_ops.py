@@ -25,6 +25,9 @@ Rank r holds rows ``[r N // D, (r + 1) N // D)`` of a point axis
     ``torch.use_deterministic_algorithms``: a sorted segment sum on the
     card, in order on the CPU; never float atomics), until it reaches its
     owner.
+  * :func:`crop_rows_gather` is the ring gather of a crop model's crop
+    rows (tsegnet's l0 features): this rank's rows of the crop axis, whose
+    indices every rank holds whole.
 """
 
 from __future__ import annotations
@@ -167,3 +170,21 @@ def ring_gather(x: torch.Tensor, idx: torch.Tensor, mesh: Mesh,
         return ring_gather(x[None], idx[None], mesh, n)[0]
     n = x.shape[1] * mesh.size if n is None else n
     return _RingGather.apply(x, idx, mesh, n)
+
+
+def crop_rows_gather(x: torch.Tensor, idx: torch.Tensor, lo: int, hi: int, mesh: Mesh,
+                     n: int) -> torch.Tensor:
+    """Rows of the ``n``-point clouds whose shards ``x`` ``[B, n_r, C]`` this
+    rank holds, at crops ``[lo, hi)`` of ``idx`` ``[B, K, S]`` (global point
+    indices; the crop axis is ``B·K`` crops, cloud-major): ``[hi - lo, S,
+    C]``, bit-equal to the dense ``index_points`` of those crops, with its
+    gradient returned to the owners (:func:`ring_gather`). A crop's row of
+    indices goes to its cloud's slot of a ``[B, hi - lo, S]`` index, the
+    other clouds' slots index row 0, and each crop takes its cloud's
+    slot."""
+    b, k, s = idx.shape
+    r = torch.arange(lo, hi, device=idx.device)
+    cloud, slot = r // k, r - lo
+    per_cloud = idx.new_zeros((b, hi - lo, s))
+    per_cloud[cloud, slot] = idx.reshape(b * k, s)[r]
+    return ring_gather(x, per_cloud, mesh, n)[cloud, slot]

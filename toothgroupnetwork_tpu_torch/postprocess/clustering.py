@@ -2,29 +2,44 @@
 toothgroupnetwork_tpu/postprocess/clustering.py).
 
 The JAX package calls scikit-learn here; the GPU machine the port serves on
-has no scikit-learn, so the four estimators the tgnet path uses are written
-out below, each following scikit-learn's algorithm step for step so that the
-partitions agree with the JAX package's:
+has no scikit-learn, so the estimators it uses are written out below, each
+following scikit-learn's algorithm step for step so that the partitions
+agree with the JAX package's:
 
   * :func:`dbscan` — labels and core samples of ``sklearn.cluster.DBSCAN``
     (clusters numbered in the order of their lowest core index, a border
     point joins the first cluster that reaches it, as ``dbscan_inner`` does),
   * :func:`pca_explained_variance` / :func:`pca_components` — the spectrum
     of ``sklearn.decomposition.PCA`` (covariance with ddof=1),
-  * :func:`mean_shift` — ``MeanShift(bin_seeding=True)``: binned seeds,
-    flat-kernel climbs, intensity-ordered de-duplication, 1-NN labels,
+  * :func:`mean_shift` — ``MeanShift(bin_seeding=True)`` (binned seeds), or
+    from given seeds (every point: ``MeanShift()``): flat-kernel climbs,
+    intensity-ordered de-duplication, 1-NN labels,
   * :func:`kmeans` — ``KMeans(init="k-means++", random_state=seed)``: the
     same ``RandomState`` draws for the greedy k-means++ seeding, then Lloyd
     iterations with scikit-learn's convergence test and empty-cluster
-    relocation.
+    relocation,
+  * :func:`ward` — ``AgglomerativeClustering(k)``: scipy's Ward tree (which
+    scikit-learn builds without a connectivity graph) cut into k clusters
+    numbered as ``_hc_cut`` numbers them,
+  * :func:`gaussian_mixture` — ``GaussianMixture(k, random_state=seed)``:
+    full covariances, responsibilities initialised from :func:`kmeans`, EM
+    until the mean log-likelihood moves by less than ``tol``, labels the
+    most likely component.
+
+:func:`clustering_points` dispatches over them as the JAX function does.
 """
 
 from __future__ import annotations
 
+import heapq
+
 import numpy as np
+from scipy import linalg
+from scipy.cluster import hierarchy
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
+from scipy.special import logsumexp
 
 
 def dbscan(x: np.ndarray, eps: float, min_samples: int):
@@ -86,13 +101,15 @@ def _bin_seeds(x: np.ndarray, bin_size: float) -> np.ndarray:
     return seeds * bin_size
 
 
-def mean_shift(x: np.ndarray, bandwidth: float, max_iter: int = 300) -> np.ndarray:
-    """Flat-kernel mean shift from binned seeds; returns labels [N] (index of
-    the nearest surviving mode, modes ordered by decreasing intensity)."""
+def mean_shift(x: np.ndarray, bandwidth: float, max_iter: int = 300,
+               seeds: np.ndarray | None = None) -> np.ndarray:
+    """Flat-kernel mean shift from ``seeds`` (by default the binned seeds);
+    returns labels [N] (index of the nearest surviving mode, modes ordered
+    by decreasing intensity)."""
     tree = cKDTree(x)
     stop = 1e-3 * bandwidth
     intensity: dict[tuple, int] = {}
-    for seed in _bin_seeds(x, bandwidth):
+    for seed in _bin_seeds(x, bandwidth) if seeds is None else seeds:
         mean, it = seed, 0
         while True:
             nb = np.sort(np.asarray(tree.query_ball_point(mean, bandwidth), np.int64))
@@ -199,21 +216,113 @@ def kmeans(x: np.ndarray, k: int, seed: int = 0, max_iter: int = 300,
     return labels.astype(np.int64)
 
 
+def ward(x: np.ndarray, k: int) -> np.ndarray:
+    """Labels [N] of ``AgglomerativeClustering(k)`` (Ward linkage): the
+    merge tree of ``scipy.cluster.hierarchy.ward`` cut at its k - 1 last
+    merges, clusters numbered in the order of ``_hc_cut``'s heap of the
+    cut's nodes."""
+    n = x.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"cannot cut {n} samples into {k} clusters")
+    if n == 1:
+        return np.zeros(1, np.intp)
+    children = hierarchy.ward(np.asarray(x))[:, :2].astype(np.intp)
+    nodes = [-(int(children[-1].max()) + 1)]
+    for _ in range(k - 1):
+        these = children[-nodes[0] - n]
+        heapq.heappush(nodes, -these[0])
+        heapq.heappushpop(nodes, -these[1])
+    labels = np.zeros(n, np.intp)
+    for i, node in enumerate(nodes):
+        todo, leaves = [-node], []
+        while todo:
+            j = todo.pop()
+            if j < n:
+                leaves.append(j)
+            else:
+                todo.extend(children[j - n])
+        labels[leaves] = i
+    return labels
+
+
+def _gaussian_parameters(x, resp, reg_covar):
+    """The M step: (weights unnormalised, means, precision Cholesky factors)
+    of full-covariance components from responsibilities ``resp`` [N, k]."""
+    nk = resp.sum(axis=0) + 10 * np.finfo(resp.dtype).eps
+    means = resp.T @ x / nk[:, None]
+    d = x.shape[1]
+    prec_chol = np.empty((len(nk), d, d), x.dtype)
+    for c in range(len(nk)):
+        diff = x - means[c]
+        cov = (resp[:, c] * diff.T) @ diff / nk[c]
+        cov.flat[::d + 1] += reg_covar
+        chol = linalg.cholesky(cov, lower=True)
+        prec_chol[c] = linalg.solve_triangular(chol, np.eye(d, dtype=x.dtype), lower=True).T
+    return nk, means, prec_chol
+
+
+def _weighted_log_prob(x, weights, means, prec_chol):
+    """log(weight_c) + log N(x | mean_c, cov_c), [N, k]."""
+    d = x.shape[1]
+    log_det = np.sum(np.log(prec_chol.reshape(len(means), -1)[:, ::d + 1]), axis=1)
+    log_prob = np.empty((x.shape[0], len(means)), x.dtype)
+    for c, (mu, pc) in enumerate(zip(means, prec_chol)):
+        y = x @ pc - mu @ pc
+        log_prob[:, c] = np.sum(np.square(y), axis=1)
+    return (-0.5 * (d * np.log(2 * np.pi).astype(x.dtype) + log_prob) + log_det
+            + np.log(weights))
+
+
+def gaussian_mixture(x: np.ndarray, k: int, seed: int = 0, tol: float = 1e-3,
+                     reg_covar: float = 1e-6, max_iter: int = 100) -> np.ndarray:
+    """Labels [N] of ``GaussianMixture(k, random_state=seed).fit(x)``'s
+    ``predict(x)``: full covariances, the responsibilities initialised
+    one-hot from ``kmeans(x, k, seed)``, EM steps until the mean
+    log-likelihood moves by less than ``tol``, each point's most likely
+    component."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    resp = np.zeros((n, k), x.dtype)
+    resp[np.arange(n), kmeans(x, k, seed=seed)] = 1
+    nk, means, prec_chol = _gaussian_parameters(x, resp, reg_covar)
+    weights = nk / n
+    lower = -np.inf
+    for _ in range(max_iter):
+        prev = lower
+        weighted = _weighted_log_prob(x, weights, means, prec_chol)
+        norm = logsumexp(weighted, axis=1)
+        nk, means, prec_chol = _gaussian_parameters(x, np.exp(weighted - norm[:, None]),
+                                                    reg_covar)
+        weights = nk / nk.sum()
+        lower = np.mean(norm)
+        if abs(lower - prev) < tol:
+            break
+    return _weighted_log_prob(x, weights, means, prec_chol).argmax(axis=1)
+
+
 def clustering_points(moved_points_list, method: str, num_of_clusters=None):
     """Returns (cluster_centroids, cluster_centroid_labels, point_labels_list),
-    one entry per input cloud. Only ``"kmeans"`` (the boundary stage's
-    instancing) is ported; the JAX package's other methods are not on the
-    tgnet path."""
-    if method != "kmeans":
-        raise NotImplementedError(f"clustering method {method!r} is not ported")
+    one entry per input cloud: ``"dbscan"`` (eps 0.03, 60 samples),
+    ``"aggl"`` (Ward, ``num_of_clusters``), ``"kmeans"``, ``"mean_shift"``
+    (bandwidth 0.05, seeded from every point) and, for any other name, a
+    Gaussian mixture of ``num_of_clusters`` components, as the JAX function
+    dispatches; the centroids leave out DBSCAN's noise label -1."""
     cluster_centroids, cluster_centroid_labels, point_labels_list = [], [], []
     for b, pts in enumerate(moved_points_list):
-        labels = kmeans(pts, max(1, int(num_of_clusters[b])), seed=0)
+        if method == "dbscan":
+            labels = dbscan(pts, 0.03, 60)[0]
+        elif method == "mean_shift":
+            labels = mean_shift(pts, 0.05, seeds=pts)
+        else:
+            k = max(1, int(num_of_clusters[b]))
+            fit = {"aggl": ward, "kmeans": kmeans}.get(method, gaussian_mixture)
+            labels = fit(pts, k)
         point_labels_list.append(labels)
         cents, cent_labels = [], []
         for lab in np.unique(labels):
-            cents.append(pts[labels == lab].mean(axis=0))
-            cent_labels.append(lab)
+            if lab != -1:
+                cents.append(pts[labels == lab].mean(axis=0))
+                cent_labels.append(lab)
         cluster_centroids.append(cents)
         cluster_centroid_labels.append(cent_labels)
     return cluster_centroids, cluster_centroid_labels, point_labels_list

@@ -121,6 +121,20 @@ def train_step(model, optimizer, task: "ModelTask", config, batch: dict,
     return values if mesh is None else data_parallel.mean_values(values, mesh)
 
 
+def apply_host_stage(task: "ModelTask", model, batch: dict, config, step: int) -> dict:
+    """The batch with the task's host stage applied: the stage gets the
+    loader's numpy arrays (a mask of ones where there is none), its other
+    fields and ``step``, the optimizer steps taken, and the arrays it
+    returns replace the batch's. The batch as it is for a task without a
+    host stage."""
+    if task.host_stage is None:
+        return batch
+    arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    arrays.setdefault("mask", np.ones(arrays["feat"].shape[:2], dtype=bool))
+    host = {**batch, **arrays}
+    return {**host, **task.host_stage(model, host, config, step=step)}
+
+
 def zero_missing_grads(optimizer) -> None:
     """A zero gradient for every parameter the losses did not reach (the
     crop stage's offset classifier), so that it still decays, as under
@@ -210,17 +224,9 @@ class Trainer:
                    if isinstance(t, torch.Tensor)], self.mesh)
 
     def host_batch(self, batch: dict) -> dict:
-        """The batch with the task's host stage applied: the stage gets the
-        loader's numpy arrays (a mask of ones where there is none), its
-        other fields and the optimizer steps taken, and the arrays it
-        returns replace the batch's."""
-        if self.task.host_stage is None:
-            return batch
-        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        arrays.setdefault("mask", np.ones(arrays["feat"].shape[:2], dtype=bool))
-        host = {**batch, **arrays}
-        return {**host, **self.task.host_stage(self.model, host, self.config,
-                                               step=self.step)}
+        """The batch with the task's host stage applied
+        (:func:`apply_host_stage`, at the optimizer steps taken)."""
+        return apply_host_stage(self.task, self.model, batch, self.config, self.step)
 
     def device_batch(self, batch: dict) -> dict:
         """The batch's arrays as tensors on the device (a mask of ones where
