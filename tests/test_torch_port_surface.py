@@ -18,7 +18,6 @@ strictly into the port's module, and the eval forwards agree within the
 """
 
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +37,6 @@ from toothgroupnetwork_tpu.models.tsegnet import TsgCentroidModule as JaxCentroi
 from toothgroupnetwork_tpu.ops import fps as jax_fps_alias
 from toothgroupnetwork_tpu.ops import knn as jax_knn_alias
 from toothgroupnetwork_tpu.pipelines.tgn import prep_mesh_tgn as jax_prep_mesh_tgn
-from toothgroupnetwork_tpu.utils import profiling as jax_profiling
 from toothgroupnetwork_tpu.utils import torch_import as jax_torch_import
 from toothgroupnetwork_tpu.utils import viz as jax_viz
 import toothgroupnetwork_tpu_torch.data as data
@@ -92,16 +90,6 @@ class TestViz:
 # ---------------------------------------------------------------------------
 
 class TestProfiling:
-    def test_scans_per_sec_equals_jax(self, monkeypatch):
-        clock = iter([10.0, 10.0, 12.5, 12.5])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        got, want = profiling.ScansPerSec(), jax_profiling.ScansPerSec()
-        for c in (got, want):
-            c.add()
-            c.add(4)
-        assert got.n == want.n == 5
-        assert got.rate() == want.rate() == 2.0
-
     def test_chained_time_on_the_cpu(self):
         calls = []
         x = torch.ones(8)

@@ -25,6 +25,7 @@ from glob import glob
 
 import numpy as np
 
+from ..utils import profiling
 from .augment import Augmentator
 
 N_POINTS = 24000
@@ -97,7 +98,9 @@ class BatchLoader:
     """Shuffled epoch iterator yielding collated ``[B, …]`` batches.
 
     ``drop_last=True`` keeps the train batches' shapes fixed; validation uses
-    ``drop_last=False`` with pad-to-batch + an item mask instead.
+    ``drop_last=False`` with pad-to-batch + an item mask instead. The work
+    behind each batch is a ``data.next`` span on a thread that traces
+    (``utils/profiling.py``).
     """
 
     def __init__(self, dataset: DentalScanDataset, batch_size: int,
@@ -121,18 +124,23 @@ class BatchLoader:
         bs = self.batch_size
         n_full = len(order) // bs
         for b in range(n_full):
-            yield collate_batch([self.dataset[int(i)] for i in order[b * bs:(b + 1) * bs]])
+            with profiling.span("data.next"):
+                batch = collate_batch([self.dataset[int(i)]
+                                       for i in order[b * bs:(b + 1) * bs]])
+            yield batch
         rem = len(order) - n_full * bs
         if rem and not self.drop_last:
-            idxs = order[n_full * bs:]
-            items = [self.dataset[int(i)] for i in idxs]
-            batch = collate_batch(items)
-            batch["batch_valid"] = np.arange(bs) < rem if rem < bs else np.ones(bs, bool)
-            # pad to full batch by repeating the first item
-            for k, v in list(batch.items()):
-                if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == rem and k != "batch_valid":
-                    reps = [v] + [v[:1]] * (bs - rem)
-                    batch[k] = np.concatenate(reps, axis=0)
+            with profiling.span("data.next"):
+                idxs = order[n_full * bs:]
+                items = [self.dataset[int(i)] for i in idxs]
+                batch = collate_batch(items)
+                batch["batch_valid"] = (np.arange(bs) < rem if rem < bs
+                                        else np.ones(bs, bool))
+                # pad to full batch by repeating the first item
+                for k, v in list(batch.items()):
+                    if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == rem and k != "batch_valid":
+                        reps = [v] + [v[:1]] * (bs - rem)
+                        batch[k] = np.concatenate(reps, axis=0)
             yield batch
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import profiling
 from .mesh_io import compute_vertex_normals, parse_obj, subdivide_midpoint
 
 # per-scan normalisation constants of the reference's tgn inference pipeline
@@ -76,16 +77,18 @@ def prep_scan_host_tgn(stl_path: str, n_sample: int = N_SAMPLE):
     """``(org_feats [N0, 6], bdl_feats [N1, 6])`` float32: the features of
     the deduplicated vertices (the targets of the final 1-NN transfer) and
     the source the device samples from, midpoint-subdivided once when the
-    mesh has fewer than ``n_sample`` vertices."""
-    vertices, faces = parse_obj(stl_path)
-    vertices, faces = dedup_vertices(vertices, faces)
-    vertices = normalize_scan_vertices(vertices)
-    normals = compute_vertex_normals(vertices, faces)
-    org_feats = np.concatenate([vertices, normals], axis=1)
-    if vertices.shape[0] < n_sample:
-        sub_v, sub_f = subdivide_midpoint(vertices, faces, 1)
-        bdl_feats = np.concatenate([sub_v, compute_vertex_normals(sub_v, sub_f)],
-                                   axis=1)
-    else:
-        bdl_feats = org_feats.copy()
-    return org_feats.astype(np.float32), bdl_feats.astype(np.float32)
+    mesh has fewer than ``n_sample`` vertices. A ``scan_prep`` span on a
+    thread that traces (``utils/profiling.py``)."""
+    with profiling.span("scan_prep"):
+        vertices, faces = parse_obj(stl_path)
+        vertices, faces = dedup_vertices(vertices, faces)
+        vertices = normalize_scan_vertices(vertices)
+        normals = compute_vertex_normals(vertices, faces)
+        org_feats = np.concatenate([vertices, normals], axis=1)
+        if vertices.shape[0] < n_sample:
+            sub_v, sub_f = subdivide_midpoint(vertices, faces, 1)
+            bdl_feats = np.concatenate([sub_v, compute_vertex_normals(sub_v, sub_f)],
+                                       axis=1)
+        else:
+            bdl_feats = org_feats.copy()
+        return org_feats.astype(np.float32), bdl_feats.astype(np.float32)

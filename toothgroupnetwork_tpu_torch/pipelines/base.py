@@ -18,6 +18,7 @@ from scipy.spatial import cKDTree
 from ..data.mesh_io import compute_vertex_normals, parse_obj, subdivide_midpoint
 from ..data.scan_prep import N_SAMPLE, normalize_scan_vertices
 from ..ops import farthest_point_sample
+from ..utils import profiling
 
 
 def prep_mesh_feats(stl_path: str, n_sample: int = N_SAMPLE):
@@ -54,7 +55,7 @@ def sample_on_device(feats: np.ndarray, n: int, device):
         idx = torch.arange(n0, device=src.device).repeat(-(-n // n0))[:n]
     else:
         idx = farthest_point_sample(src[:, :3], n).long()
-    return src[idx], feats[idx.cpu().numpy()]
+    return src[idx], feats[profiling.fetch(idx).numpy()]
 
 
 def nn_upsample(values: np.ndarray, source_xyz: np.ndarray,
@@ -71,7 +72,7 @@ def fps_sample_idx(xyz: np.ndarray, n: int, *, device) -> np.ndarray:
     if n == 0:
         return np.zeros(0, np.int64)
     pts = torch.from_numpy(np.ascontiguousarray(xyz[:, :3], np.float32)).to(device)
-    return farthest_point_sample(pts, n).cpu().numpy().astype(np.int64)
+    return profiling.fetch(farthest_point_sample(pts, n)).numpy().astype(np.int64)
 
 
 def fps_sample(feats: np.ndarray, n: int, *, device) -> np.ndarray:

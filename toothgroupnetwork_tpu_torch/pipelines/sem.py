@@ -12,6 +12,7 @@ from collections import defaultdict
 
 import torch
 
+from ..utils import profiling
 from .base import (N_SAMPLE, class_logits_to_fdi, nn_upsample, prep_mesh_feats,
                    sample_on_device)
 
@@ -27,20 +28,24 @@ class SemInferencePipeline:
         # per-phase wall seconds of the last call
         self.timings: dict[str, float] = defaultdict(float)
 
-    @torch.inference_mode()
     def __call__(self, stl_path: str) -> dict:
+        """One scan; a ``scan`` span cut into its phases' spans under a
+        recording torch profiler (``utils/profiling.py``)."""
+        with profiling.tracing(), profiling.span("scan", phases=True):
+            return self._scan(stl_path)
+
+    @torch.inference_mode()
+    def _scan(self, stl_path: str) -> dict:
         timings: dict[str, float] = defaultdict(float)
         t0 = time.perf_counter()
         org_feats, feats = prep_mesh_feats(stl_path, self.n_sample)
         feats_dev, sampled = sample_on_device(feats, self.n_sample, self.device)
-        t1 = time.perf_counter()
-        timings["mesh_prep"] = t1 - t0
+        t0 = profiling.phase(timings, "mesh_prep", t0)
         ids = torch.argmax(self.model(feats_dev[None], None)["cls_pred"][0], dim=-1)
-        ids = ids.cpu().numpy()
-        t2 = time.perf_counter()
-        timings["forward_device"] = t2 - t1
+        ids = profiling.fetch(ids).numpy()
+        t0 = profiling.phase(timings, "forward_device", t0)
         full = nn_upsample(class_logits_to_fdi(ids), sampled[:, :3],
                            org_feats[:, :3])
-        timings["host_1nn_transfer"] = time.perf_counter() - t2
+        profiling.phase(timings, "host_1nn_transfer", t0)
         self.timings = timings
         return {"sem": full.reshape(-1), "ins": full.reshape(-1)}

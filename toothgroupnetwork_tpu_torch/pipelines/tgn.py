@@ -41,7 +41,7 @@ import os
 import queue
 import time
 from collections import defaultdict
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor
 from contextlib import nullcontext
 
 import numpy as np
@@ -59,6 +59,7 @@ from ..ops.kernels.knn import knn_route
 from ..postprocess.boundary import boundary_sampled_feats, nearest_rescored
 from ..postprocess.clustering import clustering_points, get_clustering_labels
 from ..postprocess.fusion import disambiguate_arch_labels, merge_boundary_clusters
+from ..utils import profiling
 from ..utils.weights import load_npz
 from .base import class_logits_to_fdi, fps_sample
 
@@ -102,7 +103,7 @@ def _device_votes(sem2: torch.Tensor, crop_idx: torch.Tensor, valid: np.ndarray,
 def _moved_f16(feats_xyz: torch.Tensor, offset: torch.Tensor) -> np.ndarray:
     """xyz + offset rounded through float16, as the JAX package hands the
     moved points to the host clustering."""
-    return (feats_xyz + offset).to(torch.float16).float().cpu().numpy()
+    return profiling.fetch((feats_xyz + offset).to(torch.float16).float()).numpy()
 
 
 def prep_mesh_tgn(stl_path: str, n_sample: int = N_SAMPLE, *, device):
@@ -145,7 +146,7 @@ def final_transfer(nn1: torch.Tensor, nn1_d2: torch.Tensor, nn_b, d_b2,
     Returns the ``[L, N]`` label planes on the host."""
     nn = nn1 if nn_b is None else torch.where(d_b2 < nn1_d2, n_sampled + nn_b, nn1)
     planes = torch.from_numpy(np.ascontiguousarray(labels, np.int32)).to(nn.device)
-    return planes[:, nn].cpu().numpy().astype(np.int64)
+    return profiling.fetch(planes[:, nn]).numpy().astype(np.int64)
 
 
 class TgnInferencePipeline:
@@ -201,11 +202,9 @@ class TgnInferencePipeline:
         self._pool: ProcessPoolExecutor | None = None
         self._pool_size = 0
 
-    @staticmethod
-    def _t(timings: dict, name: str, t0: float) -> float:
-        now = time.perf_counter()
-        timings[name] += now - t0
-        return now
+    # ends a phase of __call__: ``_t(timings, name, t0) -> now`` (seconds
+    # on time.perf_counter), and its span while the scan is traced
+    _t = staticmethod(profiling.phase)
 
     def variants(self) -> dict:
         """The route each part of a scan takes on this pipeline, at the
@@ -252,8 +251,8 @@ class TgnInferencePipeline:
         cents, valid, valid_np = _pad_centroids(centroids, self.device)
         crops, crop_mask, crop_idx = make_crops(feats, cents, valid, self.crop_size)
         out = module.stage2(crops, crop_mask)
-        return _device_votes(out["sem_1"], crop_idx[0], valid_np[0],
-                             feats.shape[1]).cpu().numpy()
+        return profiling.fetch(_device_votes(out["sem_1"], crop_idx[0], valid_np[0],
+                                             feats.shape[1])).numpy()
 
     def run_many(self, stl_paths, workers: int = 3,
                  prep_workers: int | None = None) -> list[dict]:
@@ -269,41 +268,45 @@ class TgnInferencePipeline:
         threads only. The pool persists across calls (``close()`` reaps
         it). Returns the results in input order, each identical to a serial
         call's; ``self.timings`` holds the last completed scan's. A scan
-        that raises makes this call raise."""
+        that raises makes this call raise. Under a recording torch profiler
+        the call is a ``run_many`` span and each scan a ``scan`` span under
+        it, group ``(call, index)`` (``utils/profiling.py``)."""
         if prep_workers is None:
             prep_workers = max(0, min(2, (os.cpu_count() or 1) - 1))
         workers = max(1, workers)
-        # folds and kernel layouts are shared by every scan: made here, on
-        # this thread, and finished on the card before any worker reads them
-        for module in (self.fps_module, self.bdl_module):
-            prepare = getattr(module, "prepare_kernel_state", None)
-            if prepare is not None:
-                with torch.inference_mode():
-                    prepare()
-        streams: queue.SimpleQueue = queue.SimpleQueue()
-        for _ in range(workers):
-            streams.put(torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        call_id = profiling.new_call()
+        with profiling.tracing(), profiling.span("run_many", (call_id, None)) as call:
+            # folds and kernel layouts are shared by every scan: made here,
+            # on this thread, and finished on the card before any worker
+            # reads them
+            for module in (self.fps_module, self.bdl_module):
+                prepare = getattr(module, "prepare_kernel_state", None)
+                if prepare is not None:
+                    with torch.inference_mode():
+                        prepare()
+            streams: queue.SimpleQueue = queue.SimpleQueue()
+            for _ in range(workers):
+                streams.put(torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
-        def one(path, prep=None):
-            stream = streams.get()
-            try:
-                with (torch.cuda.stream(stream) if stream is not None
-                      else nullcontext()):
-                    return self(path, _prep=None if prep is None
-                                else prep.result())
-            finally:
-                streams.put(stream)
+            def one(index, path, prep=None):
+                stream = streams.get()
+                try:
+                    with (torch.cuda.stream(stream) if stream is not None
+                          else nullcontext()), profiling.joined(call, (call_id, index)):
+                        return self(path, _prep=prep)
+                finally:
+                    streams.put(stream)
 
-        preps = [None] * len(stl_paths)
-        if prep_workers > 0:
-            pool = self._prep_pool(prep_workers)
-            preps = [pool.submit(prep_scan_host_tgn, p, self.n_sample)
-                     for p in stl_paths]
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            return list(ex.map(one, stl_paths, preps))
+            preps = [None] * len(stl_paths)
+            if prep_workers > 0:
+                pool = self._prep_pool(prep_workers)
+                preps = [pool.submit(prep_scan_host_tgn, p, self.n_sample)
+                         for p in stl_paths]
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                return list(ex.map(one, range(len(stl_paths)), stl_paths, preps))
 
     def _prep_pool(self, prep_workers: int) -> ProcessPoolExecutor:
         """The persistent spawn-context prep pool, warmed on first use (the
@@ -325,14 +328,23 @@ class TgnInferencePipeline:
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool, self._pool_size = None, 0
 
-    @torch.inference_mode()
     def __call__(self, stl_path: str, _prep=None) -> dict:
         """One scan; ``_prep``: its ``(org_feats, bdl_feats)`` from
-        ``prep_scan_host_tgn``, prepared ahead by ``run_many``'s prep
-        workers (the FPS sample on the device still runs here)."""
+        ``prep_scan_host_tgn``, or the future of them from ``run_many``'s
+        prep workers (the FPS sample on the device still runs here). Under
+        a recording torch profiler, or inside a traced ``run_many``, the
+        scan is a ``scan`` span cut into its phases' spans."""
+        with profiling.tracing(), profiling.span("scan", phases=True):
+            return self._scan(stl_path, _prep)
+
+    @torch.inference_mode()
+    def _scan(self, stl_path: str, _prep) -> dict:
         timings: dict[str, float] = defaultdict(float)
         dev = self.device
         t0 = time.perf_counter()
+        if isinstance(_prep, Future):
+            with profiling.span("scan_prep.wait"):
+                _prep = _prep.result()
         org_feats, bdl_feats = (prep_scan_host_tgn(stl_path, self.n_sample)
                                 if _prep is None else _prep)
         n_vertices = org_feats.shape[0]
@@ -345,7 +357,7 @@ class TgnInferencePipeline:
             sample_idx = farthest_point_sample(src[:, :3], self.n_sample).long()
         # the host copy of the indices waits for the FPS, so its time is
         # counted here and not in the next phase
-        sample_np = sample_idx.cpu().numpy()
+        sample_np = profiling.fetch(sample_idx).numpy()
         if self._spatial_sort:
             perm = spatial_sort_perm(bdl_feats[sample_np, :3])
             sample_np = sample_np[perm]
@@ -356,7 +368,8 @@ class TgnInferencePipeline:
 
         # ---------------- stage 1 (fps model) ----------------
         out = self.fps_module.stage1(feats_dev)
-        cls_1 = torch.argmax(out["sem_1"][0], dim=-1).cpu().numpy().astype(np.int32)
+        cls_1 = profiling.fetch(torch.argmax(out["sem_1"][0], dim=-1)).numpy().astype(
+            np.int32)
         moved = _moved_f16(feats_dev[0, :, :3], out["offset_1"][0])
         t0 = self._t(timings, "fps:stage1_device", t0)
 

@@ -18,6 +18,7 @@ import torch
 
 from ..models.tasks import _tsegnet_preset, build_tsegnet
 from ..models.tsegnet import cluster_centres, tsegnet_crops
+from ..utils import profiling
 from ..utils.weights import load_npz
 from .base import N_SAMPLE, nn_upsample, prep_mesh_feats, sample_on_device
 from .tgn import use_full_fp32
@@ -56,25 +57,28 @@ class TsegnetInferencePipeline:
         valid[0, :len(cents)] = True
         return centers, valid
 
-    @torch.inference_mode()
     def __call__(self, stl_path: str) -> dict:
+        """One scan; a ``scan`` span cut into its phases' spans under a
+        recording torch profiler (``utils/profiling.py``)."""
+        with profiling.tracing(), profiling.span("scan", phases=True):
+            return self._scan(stl_path)
+
+    @torch.inference_mode()
+    def _scan(self, stl_path: str) -> dict:
         timings: dict[str, float] = defaultdict(float)
         dev = self.device
         t0 = time.perf_counter()
         org_feats, feats = prep_mesh_feats(stl_path, self.n_sample)
         feats_dev, sampled = sample_on_device(feats, self.n_sample, dev)
         feats_dev = feats_dev[None]
-        t1 = time.perf_counter()
-        timings["mesh_prep"] = t1 - t0
+        t0 = profiling.phase(timings, "mesh_prep", t0)
 
         cent = self.module.centroid_forward(feats_dev)
-        l3_xyz, offset, dist = (t.cpu().numpy() for t in (
+        l3_xyz, offset, dist = (profiling.fetch(t).numpy() for t in (
             cent["l3_xyz"][0], cent["offset_result"][0], cent["dist_result"][0, :, 0]))
-        t2 = time.perf_counter()
-        timings["centroid_device"] = t2 - t1
+        t0 = profiling.phase(timings, "centroid_device", t0)
         centers, valid = self.proposals(l3_xyz, offset, dist)
-        t3 = time.perf_counter()
-        timings["host_dbscan"] = t3 - t2
+        t0 = profiling.phase(timings, "host_dbscan", t0)
 
         pred_labels = np.zeros(self.n_sample)
         painted = 0
@@ -83,20 +87,19 @@ class TsegnetInferencePipeline:
                 feats_dev, cent["l0_points"], torch.from_numpy(centers).to(dev),
                 torch.from_numpy(valid).to(dev), self.crop_size)
             _, _, pd_2, id_pred = self.module.seg_forward(crop_feat, crop_mask)
-            pd_2, ids, crop_idx = (t.cpu().numpy() for t in (
+            pd_2, ids, crop_idx = (profiling.fetch(t).numpy() for t in (
                 torch.sigmoid(pd_2[..., 0]), torch.argmax(id_pred, dim=-1),
                 crop_idx[0]))
             for k in np.flatnonzero(valid[0]):
                 sel = crop_idx[k][pd_2[k] > 0.5]
                 pred_labels[sel] = ids[k]
                 painted += int(sel.size > 0)
-        t4 = time.perf_counter()
-        timings["seg_device"] = t4 - t3
+        t0 = profiling.phase(timings, "seg_device", t0)
 
         pred_labels[pred_labels >= 9] += 2
         pred_labels[pred_labels > 0] += 10
         full = nn_upsample(pred_labels, sampled[:, :3], org_feats[:, :3])
-        timings["host_1nn_transfer"] = time.perf_counter() - t4
+        profiling.phase(timings, "host_1nn_transfer", t0)
         self.timings = timings
         self.last_stats = {"clusters": int(valid.sum()), "painted_crops": painted}
         return {"sem": full.reshape(-1).astype(np.int64),

@@ -38,6 +38,7 @@ from ..ops import farthest_point_sample, knn_points
 from ..ops.cells import spatial_sort_perm
 from ..ops.distance import _dot_fixed
 from ..pipelines.base import fps_sample_idx
+from ..utils import profiling
 from .clustering import first_label_ratio
 
 
@@ -112,7 +113,8 @@ def boundary_sampled_feats(point_labels: np.ndarray, org_feats: np.ndarray,
             org_dev[:, :3], sampled_dev[:, :3],
             torch.from_numpy(np.asarray(point_labels)).to(org_dev.device),
             k, bdl_ratio)
-        bd_mask, ps_labels = bd_dev.cpu().numpy(), lab_dev.cpu().numpy()
+        bd_mask, ps_labels = (profiling.fetch(bd_dev).numpy(),
+                              profiling.fetch(lab_dev).numpy())
     else:
         bd_mask, ps_labels, nn1_idx, nn1_d2 = boundary_purity(
             org_feats[:, :3].astype(np.float32), sampled_feats[:, :3],
@@ -132,8 +134,8 @@ def boundary_sampled_feats(point_labels: np.ndarray, org_feats: np.ndarray,
         nb_rows = non_bd[fps_sample_idx(org_feats[non_bd, :3], need,
                                         device=device)]
     elif need:
-        nb_rows = farthest_point_sample(org_dev[:, :3], need, ~bd_dev).cpu(
-        ).numpy().astype(np.int64)
+        nb_rows = profiling.fetch(farthest_point_sample(
+            org_dev[:, :3], need, ~bd_dev)).numpy().astype(np.int64)
     else:
         nb_rows = non_bd[:0]
 

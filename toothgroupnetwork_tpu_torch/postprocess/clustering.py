@@ -41,6 +41,8 @@ from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
 from scipy.special import logsumexp
 
+from ..utils import profiling
+
 
 def dbscan(x: np.ndarray, eps: float, min_samples: int):
     """Returns (labels [N] int64 with -1 = noise, core_sample_indices)."""
@@ -306,25 +308,29 @@ def clustering_points(moved_points_list, method: str, num_of_clusters=None):
     ``"aggl"`` (Ward, ``num_of_clusters``), ``"kmeans"``, ``"mean_shift"``
     (bandwidth 0.05, seeded from every point) and, for any other name, a
     Gaussian mixture of ``num_of_clusters`` components, as the JAX function
-    dispatches; the centroids leave out DBSCAN's noise label -1."""
+    dispatches; the centroids leave out DBSCAN's noise label -1. A
+    ``cluster`` span on a thread that traces, counting the ``points``
+    clustered (``utils/profiling.py``)."""
     cluster_centroids, cluster_centroid_labels, point_labels_list = [], [], []
-    for b, pts in enumerate(moved_points_list):
-        if method == "dbscan":
-            labels = dbscan(pts, 0.03, 60)[0]
-        elif method == "mean_shift":
-            labels = mean_shift(pts, 0.05, seeds=pts)
-        else:
-            k = max(1, int(num_of_clusters[b]))
-            fit = {"aggl": ward, "kmeans": kmeans}.get(method, gaussian_mixture)
-            labels = fit(pts, k)
-        point_labels_list.append(labels)
-        cents, cent_labels = [], []
-        for lab in np.unique(labels):
-            if lab != -1:
-                cents.append(pts[labels == lab].mean(axis=0))
-                cent_labels.append(lab)
-        cluster_centroids.append(cents)
-        cluster_centroid_labels.append(cent_labels)
+    with profiling.span("cluster") as span:
+        for b, pts in enumerate(moved_points_list):
+            span.count("points", len(pts))
+            if method == "dbscan":
+                labels = dbscan(pts, 0.03, 60)[0]
+            elif method == "mean_shift":
+                labels = mean_shift(pts, 0.05, seeds=pts)
+            else:
+                k = max(1, int(num_of_clusters[b]))
+                fit = {"aggl": ward, "kmeans": kmeans}.get(method, gaussian_mixture)
+                labels = fit(pts, k)
+            point_labels_list.append(labels)
+            cents, cent_labels = [], []
+            for lab in np.unique(labels):
+                if lab != -1:
+                    cents.append(pts[labels == lab].mean(axis=0))
+                    cent_labels.append(lab)
+            cluster_centroids.append(cents)
+            cluster_centroid_labels.append(cent_labels)
     return cluster_centroids, cluster_centroid_labels, point_labels_list
 
 
@@ -341,8 +347,15 @@ def get_clustering_labels(moved_points: np.ndarray, labels: np.ndarray):
     clusters, then 10-NN majority absorption of the noise points.
 
     Returns instance labels for the FOREGROUND points only (same order as
-    ``moved_points[labels != 0]``)."""
-    fg = moved_points[labels != 0, :]
+    ``moved_points[labels != 0]``). A ``cluster`` span on a thread that
+    traces, counting the foreground ``points`` (``utils/profiling.py``)."""
+    with profiling.span("cluster") as span:
+        fg = moved_points[labels != 0, :]
+        span.count("points", fg.shape[0])
+        return _foreground_instances(fg)
+
+
+def _foreground_instances(fg: np.ndarray) -> np.ndarray:
     if fg.shape[0] == 0:
         return np.zeros((0,), dtype=np.int64)
 

@@ -32,6 +32,7 @@ together.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import time
 from typing import TYPE_CHECKING
@@ -44,6 +45,7 @@ from ..nn.layers import Dropout
 from ..parallel import data_parallel
 from ..parallel.distributed import maybe_initialize
 from ..parallel.mesh import make_data_mesh, replicate, shard_batch
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.weights import init_like_flax_
 from .checkpoints import restore_train_checkpoint, save_train_checkpoint
@@ -97,23 +99,28 @@ def train_step(model, optimizer, task: "ModelTask", config, batch: dict,
     the forward runs in ``data_parallel.context(mesh)``, the gradients are
     all-reduced in one call and divided by D
     (``data_parallel.all_reduce_grads``), and the values are averaged over
-    the ranks."""
+    the ranks. On a thread that traces, the forward with the losses, the
+    backward with the gradients' reduction, and the update are the spans
+    ``step.forward``, ``step.backward`` and ``step.optimizer``."""
     drops = [m for m in model.modules() if isinstance(m, Dropout)]
     for m in drops:
         m.generator = generator
     model.train()
     try:
         with deterministic_algorithms(deterministic), data_parallel.context(mesh):
-            outputs = model(batch["feat"], batch.get("mask"),
-                            **task.forward_kwargs(batch))
-            losses = task.compute_losses(outputs, batch, config)
-            optimizer.zero_grad(set_to_none=True)
-            LossMap(losses).get_sum().backward()
-            zero_missing_grads(optimizer)
-            if mesh is not None:
-                data_parallel.all_reduce_grads(
-                    [p for g in optimizer.param_groups for p in g["params"]], mesh)
-            optimizer.step()
+            with profiling.span("step.forward"):
+                outputs = model(batch["feat"], batch.get("mask"),
+                                **task.forward_kwargs(batch))
+                losses = task.compute_losses(outputs, batch, config)
+            with profiling.span("step.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                LossMap(losses).get_sum().backward()
+                zero_missing_grads(optimizer)
+                if mesh is not None:
+                    data_parallel.all_reduce_grads(
+                        [p for g in optimizer.param_groups for p in g["params"]], mesh)
+            with profiling.span("step.optimizer"):
+                optimizer.step()
     finally:
         for m in drops:
             m.generator = None
@@ -236,11 +243,17 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
 
     def _weighted(self, values: dict, postfix: str) -> dict:
-        out = {f"{k}_{postfix}": float(v) * self._weight(k) for k, v in values.items()}
+        out = {f"{k}_{postfix}": float(profiling.fetch(v)) * self._weight(k)
+               for k, v in values.items()}
         out[f"total_{postfix}"] = sum(out.values())
         return out
 
     def train_epoch(self) -> dict:
+        """One pass over the train loader. Under a recording torch profiler
+        each batch is a ``step`` span, group the step's number, holding the
+        loader's ``data.next``, ``step.batch`` (the host stage and the copy
+        to the device), the step's own spans and the losses' ``card_wait``
+        (``utils/profiling.py``)."""
         meter = LossMeter()
         step_meter = LossMeter()
         step_every = self.config.scheduler.step_batches
@@ -249,37 +262,45 @@ class Trainer:
             n_batches = len(self.train_loader)
         except TypeError:
             n_batches = -1  # unsized loader: no epoch-end fallback fire
-        for batch_idx, batch in enumerate(self.train_loader):
-            with self._agreed():
-                if self.mesh is not None:
-                    batch = shard_batch(batch, self.mesh)
-                with data_parallel.context(self.mesh):
-                    batch = self.device_batch(self.host_batch(batch))
-            self.dropout_generator.manual_seed(dropout_seed(self.config.seed, self.step))
-            values = train_step(self.model, self.optimizer, self.task, self.config,
-                                batch, generator=self.dropout_generator,
-                                mesh=self.mesh)
-            self.step += 1
-            weighted = self._weighted(values, "step")
-            meter.aggr(weighted)
-            if step_every > 0:
-                # per-N-batch scheduler stepping and step-frequency logging:
-                # every step_batches batches, or once at the epoch's end if
-                # it never fired
-                step_meter.aggr(weighted)
-                if ((batch_idx + 1) % step_every == 0
-                        or (self.step_count == pre_step
-                            and batch_idx == n_batches - 1)):
-                    plateau = isinstance(self.lr_fn, PlateauLR)
-                    lr = self.lr_fn.lr if plateau else self.lr_fn(self.step_count)
-                    if self.wandb:
-                        self.wandb.log(step_meter.get_avg_results(),
-                                       step=self.step_count)
-                        self.wandb.log({"step_lr": lr}, step=self.step_count)
-                    self.step_count += 1
-                    if not plateau:
-                        set_learning_rate(self.optimizer, self.lr_fn(self.step_count))
-                    step_meter = LossMeter()
+        batches = iter(self.train_loader)
+        with profiling.tracing():
+            for batch_idx in itertools.count():
+                with profiling.span("step", self.step) as step:
+                    batch = next(batches, None)
+                    if batch is None:
+                        step.drop()
+                        break
+                    with profiling.span("step.batch"), self._agreed():
+                        if self.mesh is not None:
+                            batch = shard_batch(batch, self.mesh)
+                        with data_parallel.context(self.mesh):
+                            batch = self.device_batch(self.host_batch(batch))
+                    self.dropout_generator.manual_seed(
+                        dropout_seed(self.config.seed, self.step))
+                    values = train_step(self.model, self.optimizer, self.task,
+                                        self.config, batch,
+                                        generator=self.dropout_generator, mesh=self.mesh)
+                    self.step += 1
+                    weighted = self._weighted(values, "step")
+                meter.aggr(weighted)
+                if step_every > 0:
+                    # per-N-batch scheduler stepping and step-frequency
+                    # logging: every step_batches batches, or once at the
+                    # epoch's end if it never fired
+                    step_meter.aggr(weighted)
+                    if ((batch_idx + 1) % step_every == 0
+                            or (self.step_count == pre_step
+                                and batch_idx == n_batches - 1)):
+                        plateau = isinstance(self.lr_fn, PlateauLR)
+                        lr = self.lr_fn.lr if plateau else self.lr_fn(self.step_count)
+                        if self.wandb:
+                            self.wandb.log(step_meter.get_avg_results(),
+                                           step=self.step_count)
+                            self.wandb.log({"step_lr": lr}, step=self.step_count)
+                        self.step_count += 1
+                        if not plateau:
+                            set_learning_rate(self.optimizer, self.lr_fn(self.step_count))
+                        step_meter = LossMeter()
         return {k.replace("_step", "_train"): v
                 for k, v in meter.get_avg_results().items()}
 
