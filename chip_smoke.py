@@ -41,8 +41,19 @@ is no CUDA device or when the port is not beside it. Phases, one line each
   5. the slice: random full-width fps + bdl weights (``save_npz``), three
      synthetic ~100k-vertex scans through ``cli.infer.main`` on the card,
      challenge JSON checked, a repeated scan identical, every kernel of the
-     path launched (and none of the cell path); one more call under
+     path launched (and none of the cell path; K10 counted, launched only
+     where the instancing re-splits a cluster); one more call under
      torch.profiler gives the device's busy share;
+ 5b. the instancing kernels: K9 (``tgn_dbscan``) and K10
+     (``tgn_mean_shift``) on the instancing inputs the slice's scans give
+     the default pipeline (its ``get_clustering_labels`` calls, recorded)
+     and on a synthetic foreground at the serving cell's size (10100
+     points, two re-splits): the card route's labels identical to the
+     host route's, K9 identical to its plain twin and the host ``dbscan``,
+     K10's climbs to its twin and the host's climbs, CUDA-event times
+     beside the twins' and the bounds (K9: n(n-1)/2 pairs x 8 float64
+     operations over the float64 peak; K10: each climb step's ball tests
+     x 8);
   6. the cell-attention configuration: one more scan through ``cli.infer.main
      --config_path`` with ``"cell_attention": true``, the same checks, K4, K5
      and K6 launched;
@@ -231,9 +242,10 @@ N_SIDE = 317              # synthetic scans of 317^2 = 100489 vertices
 CARD = {"card": None}     # the nvidia-smi line, beside every number logged
 # published H100 SXM peaks (NVIDIA's H100 datasheet): float32 outside the
 # tensor cores, dense bf16 on the tensor cores (the matrix products of bf16
-# rows may run there) and HBM bandwidth
+# rows may run there), float64 outside the tensor cores and HBM bandwidth
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+F64_OPS_PER_S = 34e12     # float64 outside the tensor cores (K9, K10)
 HBM_BYTES_PER_S = 3.35e12
 # K3's launches a scan by shape in each configuration's main-path run
 # (phase_slice), from its wrapper's count
@@ -348,15 +360,16 @@ class KernelRecord:
 
     def add(self, shape: str, err: float, ms: float, plain_ms: float, *,
             ops: float, moved: float, library_ms: float | None = None,
-            tensor_ops: float = 0.0, **extra):
+            tensor_ops: float = 0.0, f64_ops: float = 0.0, **extra):
         """``ops`` operations and ``moved`` bytes (each input read once,
         each output written once) of this call; ``tensor_ops`` of the ops
         are matrix products of bf16 operands, held to the bf16 tensor-core
-        peak (the rest to the float32 peak). A row with tensor_ops also
-        logs its all-float32 bound."""
+        peak, and ``f64_ops`` float64 operations, held to the float64 peak
+        (the rest to the float32 peak). A row with tensor_ops also logs its
+        all-float32 bound."""
         e = self.entry
-        t_ops = ((ops - tensor_ops) / F32_OPS_PER_S
-                 + tensor_ops / BF16_TC_OPS_PER_S) * 1e3
+        t_ops = ((ops - tensor_ops - f64_ops) / F32_OPS_PER_S
+                 + tensor_ops / BF16_TC_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         if tensor_ops:
             extra.update(held_to="bf16 tensor cores + float32",
@@ -977,10 +990,10 @@ def phase_model(dev, ckpt: Path, feats: np.ndarray, cell: bool = False,
 
 
 def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
-                config: Path | None = None, what: str = "slice"):
+                config: Path | None = None, what: str = "slice", counted=()):
     """The CLI over the scans on the card; every kernel of ``kernels`` must
-    launch and none of ``unused``. Returns the launch counts and the
-    pipeline."""
+    launch and none of ``unused``; those of ``counted`` are counted only.
+    Returns the launch counts and the pipeline."""
     from toothgroupnetwork_tpu_torch.cli import infer
     from toothgroupnetwork_tpu_torch.ops.kernels.attention import (
         fused_vector_attention_packed_x as k3)
@@ -991,7 +1004,7 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
             "--checkpoint_path_bdl", str(ckpts["bdl"]), "--device", str(dev)]
     if config is not None:
         argv += ["--config_path", str(config)]
-    for k in (*kernels, *unused):
+    for k in (*kernels, *unused, *counted):
         k.launches = 0
     k3.launches_by_shape.clear()
     torch.cuda.synchronize()
@@ -999,7 +1012,7 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
     pipeline = infer.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in (*kernels, *unused)}
+    launches = {k.__name__: k.launches for k in (*kernels, *unused, *counted)}
     # K3's launches by shape, counted by its wrapper in the same run
     SCAN_K3_SHAPES[what] = {
         f"B{b}/N{n}/K{kk}/C{c}" + (" bf16" if dtype == torch.bfloat16 else ""):
@@ -1046,6 +1059,139 @@ def phase_slice(dev, ckpts, scans, out_dir: Path, kernels, unused=(),
         timings_s=dict(pipeline.timings))
     profile_call(lambda: pipeline(str(scans[0])), what)
     return launches, pipeline
+
+
+# the instancing's DBSCAN eps and min_samples and MeanShift bandwidth
+INSTANCING = (0.03, 30, 0.07)
+
+
+def synthetic_foreground(seed: int) -> np.ndarray:
+    """A foreground at the serving cell's size, as the instancing gets it
+    (float16-valued float32): 14 teeth of 700 points along an arch, the
+    4th, 5th and 11th moved to 0.05 from the tooth before, and 300
+    scattered points. At seed 0 DBSCAN finds 9 clusters and the instancing
+    re-splits two (53 seeds over 3492 points), near the serving cell's
+    re-splits (49-132 seeds over 1.5k-2.6k points)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(-0.8, 0.8, 14)
+    cents = np.stack([t, 0.5 * t ** 2, np.zeros_like(t)], -1)
+    for m in (3, 4, 10):
+        step = cents[m] - cents[m - 1]
+        cents[m] = cents[m - 1] + step / np.linalg.norm(step) * 0.05
+    x = np.concatenate([rng.normal(c, 0.02, (700, 3)) for c in cents]
+                       + [rng.uniform(-1, 1, (300, 3))])
+    return x[rng.permutation(len(x))].astype(np.float16).astype(np.float32)
+
+
+def climb_steps(x: np.ndarray, seeds: np.ndarray, bandwidth: float,
+                max_iter: int = 300) -> int:
+    """The steps of the host's climbs of ``seeds`` over ``x``
+    (``postprocess/clustering.py:_climbs``), the last, empty ball's
+    included: each is a ball test of every point of ``x``."""
+    from scipy.spatial import cKDTree
+
+    tree, stop, steps = cKDTree(x), 1e-3 * bandwidth, 0
+    for seed in seeds:
+        mean, it = seed, 0
+        while True:
+            nb = np.sort(np.asarray(tree.query_ball_point(mean, bandwidth), np.int64))
+            steps += 1
+            if nb.size == 0:
+                break
+            old, mean = mean, x[nb].mean(axis=0)
+            if np.linalg.norm(mean - old) <= stop or it == max_iter:
+                break
+            it += 1
+    return steps
+
+
+def phase_instancing(dev, pipe, scans) -> list:
+    """K9 and K10 on the instancing inputs the scans give ``pipe`` (the
+    default pipeline's ``get_clustering_labels`` calls, recorded) and on
+    :func:`synthetic_foreground`: each recorded call's labels identical to
+    the host route's on the same inputs; K9 identical to its plain twin and
+    to the host ``dbscan``; K10, on the clusters the instancing re-splits,
+    identical to its twin and each climb to the host's; CUDA-event times
+    beside the twins' (on the CPU) and the bounds. Returns K9's and K10's
+    records."""
+    from toothgroupnetwork_tpu_torch.ops.kernels import cluster
+    from toothgroupnetwork_tpu_torch.pipelines import tgn
+    from toothgroupnetwork_tpu_torch.postprocess import clustering
+
+    eps, min_samples, bandwidth = INSTANCING
+    source = "toothgroupnetwork_tpu_torch/csrc/cluster.cu"
+    replaces = "none: the JAX package clusters on the host (scikit-learn)"
+    rec_db = KernelRecord("dbscan", source, replaces)
+    rec_ms = KernelRecord("mean_shift", source, replaces)
+    with Recorded(tgn, "get_clustering_labels") as calls:
+        for scan in scans:
+            pipe(str(scan))
+        torch.cuda.synchronize()
+    inputs = []
+    for i, ((moved, labels, (moved_dev, labels_dev)), _, got) in enumerate(calls):
+        if not moved_dev.is_cuda:
+            raise AssertionError("instancing: the pipeline handed no CUDA copy")
+        want = clustering.get_clustering_labels(moved, labels)
+        if not same(got, want):
+            raise AssertionError(f"instancing call {i}: the card route's labels "
+                                 "differ from the host route's")
+        inputs.append((f"scan_call{i}", moved[labels != 0], moved_dev[labels_dev != 0]))
+    fg = synthetic_foreground(0)
+    inputs.append(("synthetic", fg, torch.from_numpy(fg).to(dev)))
+    log("instancing", calls=len(calls), identical_to_host_route=True,
+        foreground_points=[len(x) for _, x, _ in inputs])
+
+    for what, fg, fg_dev in inputs:
+        n = len(fg)
+        if n == 0:
+            continue
+        db = cluster.dbscan(fg_dev, eps, min_samples).cpu().numpy()
+        t0 = time.perf_counter()
+        twin = cluster.dbscan_reference(fg_dev.cpu(), eps, min_samples).numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        host_labels, core_idx = clustering.dbscan(fg, eps, min_samples)
+        core = np.zeros(n, np.int64)
+        core[core_idx] = 1
+        if not (same(db, twin) and same(db, np.stack([host_labels, core]))):
+            raise AssertionError(f"K9 ({what}, n {n}) differs from its twin or the host")
+        pairs = n * (n - 1) / 2
+        rec_db.add(f"{what}/n{n}", 0.0,
+                   cuda_ms(lambda: cluster.dbscan(fg_dev, eps, min_samples), 20),
+                   plain_ms, ops=8.0 * pairs, f64_ops=8.0 * pairs,
+                   moved=12.0 * n + 16.0 * n, clusters=int(db[0].max() + 1),
+                   core_points=int(db[1].sum()))
+
+        merged = clustering._merged_clusters(fg, db[0], db[1].astype(bool))
+        if not merged:
+            log("instancing", what=what, n=n, resplits=0)
+            continue
+        args, owner, clouds = clustering._climb_inputs(fg, fg_dev, db[0], merged,
+                                                       bandwidth)
+        means, counts = (t.cpu().numpy() for t in cluster.mean_shift(*args, bandwidth))
+        t0 = time.perf_counter()
+        twin_means, twin_counts = cluster.mean_shift_reference(
+            *(a.cpu() for a in args), bandwidth)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not (same(means, twin_means) and same(counts, twin_counts)):
+            raise AssertionError(f"K10 ({what}) differs from its twin")
+        seeds = args[2].cpu().numpy()
+        tests = 0
+        for c, x in enumerate(clouds):
+            mine = owner == c
+            if clustering._intensity(means[mine], counts[mine]) != clustering._climbs(
+                    x, bandwidth, seeds[mine], 300):
+                raise AssertionError(f"K10 ({what}, cluster {c}) climbs differ from "
+                                     "the host's")
+            tests += climb_steps(x, seeds[mine], bandwidth) * len(x)
+        s, p = len(owner), len(args[0])
+        rec_ms.add(f"{what}/seeds{s}/points{p}", 0.0,
+                   cuda_ms(lambda: cluster.mean_shift(*args, bandwidth), 20),
+                   plain_ms, ops=8.0 * tests, f64_ops=8.0 * tests,
+                   moved=12.0 * p + 12.0 * s + 4.0 * s + 16.0 * s,
+                   resplits=len(merged), ball_tests=tests)
+    if not rec_ms.entry["shapes"]:
+        raise AssertionError("instancing: K10 never ran (no input re-split a cluster)")
+    return [rec_db, rec_ms]
 
 
 def phase_ab(pipes: dict, scan: Path, rounds: int = 2) -> None:
@@ -3732,8 +3878,8 @@ def main() -> int:
 
     from toothgroupnetwork_tpu_torch.models.tasks import tgnet_fps_config
     from toothgroupnetwork_tpu_torch.ops.kernels import (attention, build,
-                                                         cell_select, fps, gather,
-                                                         knn)
+                                                         cell_select, cluster, fps,
+                                                         gather, knn)
     from toothgroupnetwork_tpu_torch.pipelines.tgn import use_full_fp32
 
     use_full_fp32()
@@ -3783,8 +3929,12 @@ def main() -> int:
         cell = (cell_select.cell_select_x, cell_select.cell_select_p,
                 attention.fused_vector_attention)
         entry = (attention.fused_vector_attention_packed, gather.onehot_gather_packed)
-        launches, pipe = phase_slice(dev, ckpts, scans, work / "out", base,
-                                     cell + entry)
+        # the instancing's kernels: K9 on every scan with a foreground, K10
+        # where a cluster is re-split
+        clus = (cluster.dbscan, cluster.mean_shift)
+        launches, pipe = phase_slice(dev, ckpts, scans, work / "out", base + clus[:1],
+                                     cell + entry, counted=clus[1:])
+        records += phase_instancing(dev, pipe, scans)
 
         # the cell-attention and the bfloat16 configurations through
         # --config_path, one scan each
@@ -3792,8 +3942,8 @@ def main() -> int:
         configs = {"default": None}
         slice_launches = {}
         for name, params, kernels, unused in (
-                ("cell", {"cell_attention": True}, base + cell, entry),
-                ("bf16", {"dtype": "bfloat16"}, base, cell + entry)):
+                ("cell", {"cell_attention": True}, base + cell + clus[:1], entry),
+                ("bf16", {"dtype": "bfloat16"}, base + clus[:1], cell + entry)):
             one_dir = work / f"scans_{name}"
             one_dir.mkdir()
             (one_dir / scans[0].name).write_bytes(scans[0].read_bytes())
@@ -3804,12 +3954,13 @@ def main() -> int:
             cfg_path.write_text(json.dumps(cfg))
             slice_launches[name], pipes[name] = phase_slice(
                 dev, ckpts, [one_dir / scans[0].name], work / f"out_{name}",
-                kernels, unused, config=cfg_path, what=f"{name}_slice")
+                kernels, unused, config=cfg_path, what=f"{name}_slice",
+                counted=clus[1:])
         phase_ab(pipes, scans[0])
         boundary = phase_device_boundary(dev, pipes, configs, scans, records,
-                                         base + cell + entry)
+                                         base + cell + entry + clus)
         entry_launches = phase_entries(dev, feats0)
-        phase_serve_many(pipes, work, base + cell + entry)
+        phase_serve_many(pipes, work, base + cell + entry + clus)
         train = phase_train(dev, work, ckpts, scans[0])
         workflow = phase_workflow(dev, work, ckpts)
         families = phase_families(dev, work, scans[1])
@@ -3819,13 +3970,17 @@ def main() -> int:
         ps_launches, ps_summaries = phase_point_sharded_train(dev, work)
         parallel.update(ps_launches)
 
-    # each kernel's count from the run of its own path: K1-K3 from the
-    # default slice, K4-K6 from the cell-attention slice, K7-K8 from the
-    # entries that call them
-    for rec, k in zip(records, base + cell + entry):
+    # each kernel's count from the run of its own path: K1-K3 and K9-K10
+    # from the default slice, K4-K6 from the cell-attention slice, K7-K8
+    # from the entries that call them
+    for rec, k in zip(records, base + cell + entry + clus, strict=True):
         name = k.__name__
-        rec.entry["launches"] = (launches if k in base else slice_launches["cell"]
+        rec.entry["launches"] = (launches if k in base + clus else slice_launches["cell"]
                                  if k in cell else entry_launches)[name]
+        # each configuration's main-path run: launches a scan
+        rec.entry["slice_launches_per_scan"] = {
+            "default": launches.get(name, 0) / len(scans),
+            **{config: seen.get(name, 0) for config, seen in slice_launches.items()}}
         # training (phase 10): K1-K3 a train step and a val scan
         rec.entry["train_launches_per_step"] = train["per_train_step"].get(name, 0)
         rec.entry["val_launches_per_scan"] = train["per_val_scan"].get(name, 0)

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_P, _I, _Z, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: (argtypes, restype)
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "tgn_cell_select_x": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
     "tgn_gather_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
     "tgn_cell_select_p": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "tgn_dbscan": ([_P, _I, _D, _I, _P, _P, _P], _I),
+    "tgn_mean_shift": ([_P, _P, _P, _P, _I, _D, _D, _I, _P, _P, _P], _I),
     "tgn_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -20,13 +20,17 @@ The model forwards run on ``device``; the fps model computes in
 ``model_parameter["dtype"]`` (float32 by default, or bfloat16, the JAX
 package's serving dtype), the bdl model in float32, and logits, offsets and
 votes reach the host in float32. Everything between them is host numpy,
-except the boundary stage on a CUDA device, which takes the device route as
+except two stages on a CUDA device. The instancing (steps 3 and 5) runs
+its DBSCAN and MeanShift climbs on the card (K9 / K10) on the moved points
+and masks left there, with the host's labels
+(postprocess/clustering.py). The boundary stage takes the device route as
 the JAX package takes its own on its accelerator: the purity runs through
 K2 and the fill through one masked K1 launch (step 6), and the
 boundary-half 1-NN (K2, k = 4, re-scored) and the final transfer run on the
-device too, which sends back two label planes (step 9). On the CPU the
-stage keeps the KD-trees of the JAX package's CPU route; the two routes
-agree up to distance near-ties (postprocess/boundary.py).
+device too, which sends back two label planes (step 9). On the CPU both
+keep the host route; the boundary stage's KD-trees are the JAX package's
+CPU route, and its two routes agree up to distance near-ties
+(postprocess/boundary.py).
 
 ``run_many`` serves several scans at once: each scan in flight runs on a
 thread of its own and, on a CUDA device, on a CUDA stream of its own, and
@@ -100,10 +104,12 @@ def _device_votes(sem2: torch.Tensor, crop_idx: torch.Tensor, valid: np.ndarray,
     return torch.argmax(votes, dim=1).to(torch.uint8)
 
 
-def _moved_f16(feats_xyz: torch.Tensor, offset: torch.Tensor) -> np.ndarray:
+def _moved_f16(feats_xyz: torch.Tensor, offset: torch.Tensor):
     """xyz + offset rounded through float16, as the JAX package hands the
-    moved points to the host clustering."""
-    return profiling.fetch((feats_xyz + offset).to(torch.float16).float()).numpy()
+    moved points to the host clustering: (the device tensor, its host
+    copy)."""
+    moved = (feats_xyz + offset).to(torch.float16).float()
+    return moved, profiling.fetch(moved).numpy()
 
 
 def prep_mesh_tgn(stl_path: str, n_sample: int = N_SAMPLE, *, device):
@@ -245,14 +251,14 @@ class TgnInferencePipeline:
             "bdl_dtype": dtype(self.bdl_module),
         }
 
-    def _stage2_votes(self, module, feats: torch.Tensor, centroids) -> np.ndarray:
+    def _stage2_votes(self, module, feats: torch.Tensor, centroids):
         """Crops around ``centroids`` + stage 2 + vote aggregation -> the
-        per-point FG mask (uint8 ``[N]``) on the host."""
+        per-point FG mask (uint8 ``[N]``): (on the device, on the host)."""
         cents, valid, valid_np = _pad_centroids(centroids, self.device)
         crops, crop_mask, crop_idx = make_crops(feats, cents, valid, self.crop_size)
         out = module.stage2(crops, crop_mask)
-        return profiling.fetch(_device_votes(out["sem_1"], crop_idx[0], valid_np[0],
-                                             feats.shape[1])).numpy()
+        votes = _device_votes(out["sem_1"], crop_idx[0], valid_np[0], feats.shape[1])
+        return votes, profiling.fetch(votes).numpy()
 
     def run_many(self, stl_paths, workers: int = 3,
                  prep_workers: int | None = None) -> list[dict]:
@@ -368,23 +374,24 @@ class TgnInferencePipeline:
 
         # ---------------- stage 1 (fps model) ----------------
         out = self.fps_module.stage1(feats_dev)
-        cls_1 = profiling.fetch(torch.argmax(out["sem_1"][0], dim=-1)).numpy().astype(
-            np.int32)
-        moved = _moved_f16(feats_dev[0, :, :3], out["offset_1"][0])
+        cls_dev = torch.argmax(out["sem_1"][0], dim=-1)
+        cls_1 = profiling.fetch(cls_dev).numpy().astype(np.int32)
+        moved_dev, moved = _moved_f16(feats_dev[0, :, :3], out["offset_1"][0])
         t0 = self._t(timings, "fps:stage1_device", t0)
 
-        fg_labels = get_clustering_labels(moved, cls_1)
+        fg_labels = get_clustering_labels(moved, cls_1, (moved_dev, cls_dev))
         fg_moved = moved[cls_1 != 0]
         centroids = [fg_moved[fg_labels == i].mean(axis=0)
                      for i in np.unique(fg_labels)]
         t0 = self._t(timings, "fps:host_centroids", t0)
-        whole_mask = self._stage2_votes(self.fps_module, feats_dev, centroids)
+        mask_dev, whole_mask = self._stage2_votes(self.fps_module, feats_dev, centroids)
         t0 = self._t(timings, "fps:stage2_device", t0)
 
         # refined instancing from the vote-aggregated FG mask
         ins_labels = np.full(len(sampled), -1.0)
         if whole_mask.any():
-            ins_labels[whole_mask != 0] = get_clustering_labels(moved, whole_mask)
+            ins_labels[whole_mask != 0] = get_clustering_labels(
+                moved, whole_mask, (moved_dev, mask_dev))
         ins_labels = (ins_labels + 1).astype(np.int64)  # 0 = bg
         t0 = self._t(timings, "host_instancing", t0)
 
@@ -412,8 +419,8 @@ class TgnInferencePipeline:
                      for i in np.unique(pseudo_in) if i != -1]
         feats_b = src[rows_dev][None]
         out_b = self.bdl_module.stage1(feats_b)
-        moved_b = _moved_f16(feats_b[0, :, :3], out_b["offset_1"][0])
-        whole_mask_b = self._stage2_votes(self.bdl_module, feats_b, bdl_cents)
+        _, moved_b = _moved_f16(feats_b[0, :, :3], out_b["offset_1"][0])
+        _, whole_mask_b = self._stage2_votes(self.bdl_module, feats_b, bdl_cents)
         t0 = self._t(timings, "bdl:fused_device", t0)
 
         n_clusters = len(np.unique(pseudo_in)) - 1

@@ -1,5 +1,7 @@
-"""Instance clustering on the host, numpy and scipy only (counterpart of
-toothgroupnetwork_tpu/postprocess/clustering.py).
+"""Instance clustering, numpy and scipy on the host (counterpart of
+toothgroupnetwork_tpu/postprocess/clustering.py); the tgnet instancing
+(:func:`get_clustering_labels`) runs its DBSCAN and MeanShift climbs on the
+card when handed its points' CUDA copy (K9 / K10), with the same labels.
 
 The JAX package calls scikit-learn here; the GPU machine the port serves on
 has no scikit-learn, so the estimators it uses are written out below, each
@@ -34,6 +36,7 @@ from __future__ import annotations
 import heapq
 
 import numpy as np
+import torch
 from scipy import linalg
 from scipy.cluster import hierarchy
 from scipy.sparse import coo_matrix
@@ -41,6 +44,7 @@ from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
 from scipy.special import logsumexp
 
+from ..ops.kernels import cluster as cluster_kernels
 from ..utils import profiling
 
 
@@ -108,10 +112,18 @@ def mean_shift(x: np.ndarray, bandwidth: float, max_iter: int = 300,
     """Flat-kernel mean shift from ``seeds`` (by default the binned seeds);
     returns labels [N] (index of the nearest surviving mode, modes ordered
     by decreasing intensity)."""
+    seeds = _bin_seeds(x, bandwidth) if seeds is None else seeds
+    return _mean_shift_labels(x, _climbs(x, bandwidth, seeds, max_iter), bandwidth)
+
+
+def _climbs(x: np.ndarray, bandwidth: float, seeds, max_iter: int) -> dict:
+    """Each seed's climb to the mean of its ball until it moves by at most
+    ``1e-3 * bandwidth``: {final mean: size of its last ball}, a seed whose
+    ball empties left out."""
     tree = cKDTree(x)
     stop = 1e-3 * bandwidth
     intensity: dict[tuple, int] = {}
-    for seed in _bin_seeds(x, bandwidth) if seeds is None else seeds:
+    for seed in seeds:
         mean, it = seed, 0
         while True:
             nb = np.sort(np.asarray(tree.query_ball_point(mean, bandwidth), np.int64))
@@ -123,6 +135,14 @@ def mean_shift(x: np.ndarray, bandwidth: float, max_iter: int = 300,
             it += 1
         if nb.size:
             intensity[tuple(mean)] = nb.size
+    return intensity
+
+
+def _mean_shift_labels(x: np.ndarray, intensity: dict, bandwidth: float) -> np.ndarray:
+    """MeanShift's labels from its climbs' ``intensity`` (final mean ->
+    size of its last ball): the modes by decreasing intensity, each
+    dropped within ``bandwidth`` of a stronger one, then every point's
+    nearest surviving mode."""
     if not intensity:
         raise ValueError(f"no point within bandwidth={bandwidth} of any seed")
     ranked = sorted(intensity.items(), key=lambda t: (t[1], t[0]), reverse=True)
@@ -340,30 +360,82 @@ def _pca_eigenvalues(points: np.ndarray) -> np.ndarray:
     return pca_explained_variance(points)
 
 
-def get_clustering_labels(moved_points: np.ndarray, labels: np.ndarray):
+def get_clustering_labels(moved_points: np.ndarray, labels: np.ndarray,
+                          device_copy=None) -> np.ndarray:
     """The tgnet instance algorithm: DBSCAN(eps=.03, min_samples=30) on the
     foreground moved points, PCA first-eigenvalue test on each cluster's core
     points, MeanShift(bandwidth=.07, binned seeds) re-split of merged
     clusters, then 10-NN majority absorption of the noise points.
 
+    ``device_copy``: the same points and labels as the tensors they were
+    fetched from, ``(points [N, 3] f32, labels [N])``. On a CUDA device the
+    DBSCAN runs there as K9 and the re-splits' climbs as K10
+    (``ops/kernels/cluster.py``), with the host functions' labels; without
+    one, or on any other device, the host functions run. The PCA test, the
+    seeds, the modes' de-duplication and labelling, and the 10-NN vote stay
+    on the host either way.
+
     Returns instance labels for the FOREGROUND points only (same order as
     ``moved_points[labels != 0]``). A ``cluster`` span on a thread that
-    traces, counting the foreground ``points`` (``utils/profiling.py``)."""
+    traces, fetches included, counting the foreground ``points``, those
+    instanced on a CUDA device (``card_points``) and the seeds K10 climbed
+    (``climbs``) (``utils/profiling.py``)."""
     with profiling.span("cluster") as span:
         fg = moved_points[labels != 0, :]
+        fg_dev = None
+        if device_copy is not None and device_copy[0].is_cuda:
+            points, dev_labels = device_copy
+            fg_dev = points[dev_labels != 0]
         span.count("points", fg.shape[0])
-        return _foreground_instances(fg)
+        out, climbs = _foreground_instances(fg, fg_dev)
+        span.count("card_points", 0 if fg_dev is None else fg.shape[0])
+        span.count("climbs", climbs)
+        return out
 
 
-def _foreground_instances(fg: np.ndarray) -> np.ndarray:
+def _foreground_instances(fg: np.ndarray, fg_dev=None) -> tuple[np.ndarray, int]:
+    """Instance labels of the foreground ``fg`` and the number of seeds K10
+    climbed: on the host, or through K9 / K10 where ``fg_dev`` holds the
+    same points as a tensor (on the CPU, their plain twins)."""
     if fg.shape[0] == 0:
-        return np.zeros((0,), dtype=np.int64)
+        return np.zeros((0,), dtype=np.int64), 0
 
-    db_labels, core_idx = dbscan(fg, 0.03, 30)
+    if fg_dev is None:
+        db_labels, core_idx = dbscan(fg, 0.03, 30)
+        core_mask = np.zeros(len(db_labels), dtype=bool)
+        core_mask[core_idx] = True
+    else:
+        db = profiling.fetch(cluster_kernels.dbscan(fg_dev, 0.03, 30)).numpy()
+        db_labels, core_mask = db[0], db[1].astype(bool)
     clustering_labels = db_labels.copy()
-    core_mask = np.zeros(len(db_labels), dtype=bool)
-    core_mask[core_idx] = True
 
+    merged = _merged_clusters(fg, db_labels, core_mask)
+    if fg_dev is None:
+        parts, climbs = [mean_shift(fg[db_labels == l], 0.07) for l in merged], 0
+    else:
+        parts, climbs = _mean_shift_climbed(fg, fg_dev, db_labels, merged, 0.07)
+    for idx, (label, part) in enumerate(zip(merged, parts)):
+        clustering_labels[clustering_labels == label] = part + 100 * (idx + 1)
+
+    noise = clustering_labels == -1
+    if noise.any() and (~noise).any():
+        # absorb each noise point into the majority label of its 10 nearest
+        # non-noise neighbours (first-occurrence argmax tie-break, as
+        # np.unique + argmax in the JAX package)
+        k = min(10, int((~noise).sum()))
+        _, nn = cKDTree(fg[~noise]).query(fg[noise], k=k)
+        nn = nn.reshape(int(noise.sum()), k)
+        clustering_labels[noise] = _row_modes(clustering_labels[~noise][nn])
+    elif noise.all():
+        clustering_labels[:] = 0
+    return clustering_labels, climbs
+
+
+def _merged_clusters(fg: np.ndarray, db_labels: np.ndarray,
+                     core_mask: np.ndarray) -> list:
+    """The DBSCAN clusters to re-split, in order: of the three whose core
+    points have the largest first PCA eigenvalue, those whose eigenvalue
+    passes 8 times the mean of the others' (4 clusters or more)."""
     uniq = [l for l in np.unique(db_labels) if l != -1]
     core_points = [fg[core_mask & (db_labels == l)] for l in uniq]
     eg = (np.array([_pca_eigenvalues(cp) for cp in core_points])
@@ -379,25 +451,53 @@ def _foreground_instances(fg: np.ndarray) -> np.ndarray:
         tail_mean = sorted_first[3:].mean()
         for i in range(3):
             if tail_mean > 0 and sorted_first[i] / tail_mean > 8:
-                resplit.append(order[i])
+                resplit.append(uniq[order[i]])
+    return resplit
 
-    for idx, cluster_id in enumerate(resplit):
-        sel = db_labels == uniq[cluster_id]
-        clustering_labels[clustering_labels == uniq[cluster_id]] = (
-            mean_shift(fg[sel], 0.07) + 100 * (idx + 1))
 
-    noise = clustering_labels == -1
-    if noise.any() and (~noise).any():
-        tree = cKDTree(fg[~noise])
-        k = min(10, int((~noise).sum()))
-        _, nn = tree.query(fg[noise], k=k, workers=-1)
-        nn = np.atleast_2d(nn)
-        if nn.ndim == 1:
-            nn = nn[:, None]
-        clustering_labels[noise] = _row_modes(clustering_labels[~noise][nn])
-    elif noise.all():
-        clustering_labels[:] = 0
-    return clustering_labels
+def _climb_inputs(fg: np.ndarray, fg_dev: torch.Tensor, db_labels: np.ndarray,
+                  merged: list, bandwidth: float):
+    """K10's arguments for re-splitting the clusters ``merged`` of ``fg``
+    (the same points on the device: ``fg_dev``): their points one cluster
+    after another, taken on the device, the clusters' row offsets, their
+    binned seeds and each seed's cluster; with the seeds' clusters and the
+    clusters' points on the host."""
+    rows = [np.flatnonzero(db_labels == l) for l in merged]
+    clouds = [fg[r] for r in rows]
+    seeds = [_bin_seeds(x, bandwidth) for x in clouds]
+    offsets = np.cumsum([0] + [len(r) for r in rows]).astype(np.int32)
+    owner = np.repeat(np.arange(len(rows), dtype=np.int32), [len(s) for s in seeds])
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(fg_dev.device)
+
+    args = (fg_dev.index_select(0, up(np.concatenate(rows), np.int64)),
+            up(offsets, np.int32), up(np.concatenate(seeds), np.float32),
+            up(owner, np.int32))
+    return args, owner, clouds
+
+
+def _mean_shift_climbed(fg: np.ndarray, fg_dev: torch.Tensor, db_labels: np.ndarray,
+                        merged: list, bandwidth: float) -> tuple[list, int]:
+    """``[mean_shift(fg[db_labels == l], bandwidth) for l in merged]`` with
+    every cluster's binned seeds climbed in one K10 launch; returns the
+    labels and the number of seeds."""
+    if not merged:
+        return [], 0
+    args, owner, clouds = _climb_inputs(fg, fg_dev, db_labels, merged, bandwidth)
+    means, counts = cluster_kernels.mean_shift(*args, bandwidth)
+    # one fetch: the counts ride as a fourth float32 column, bit for bit
+    both = profiling.fetch(torch.cat([means, counts.view(torch.float32)[:, None]],
+                                     dim=1)).numpy()
+    means, counts = both[:, :3], both[:, 3].view(np.int32)
+    labels = [_mean_shift_labels(x, _intensity(means[owner == c], counts[owner == c]),
+                                 bandwidth) for c, x in enumerate(clouds)]
+    return labels, len(owner)
+
+
+def _intensity(means: np.ndarray, counts: np.ndarray) -> dict:
+    """K10's climbs in :func:`_climbs`'s form."""
+    return {tuple(m): int(c) for m, c in zip(means, counts) if c}
 
 
 def _row_modes(votes: np.ndarray) -> np.ndarray:
