@@ -1,6 +1,8 @@
 """The benchmark's yardstick of work: the card's published peaks, the bounds
 of the kernels the per-layer metrics hold to their roofline, and the model
-FLOPs by shape.
+FLOPs by shape. A trained model's step, its FLOPs and its kernels' bounds,
+is counted in its reference module (``reference/<task>.py``) from these
+primitives.
 
 Peaks are NVIDIA's H100 SXM data sheet (dense, no sparsity): float32
 outside the tensor cores and HBM bandwidth. The configurations state float32
@@ -107,33 +109,3 @@ def tgnet_scan_flops(config: dict, fps_crops: int, bdl_crops: int) -> float:
     fa, ba = config["model_parameter"], config["bdl_arch"]
     return (backbone_flops(fa, 10, 1, n) + backbone_flops(fa, 2, fps_crops, s)
             + backbone_flops(ba, 10, 1, n) + backbone_flops(ba, 2, bdl_crops, s))
-
-
-def dgcnn_forward_flops(b: int, n: int, k: int, c: int = 6, emb: int = 1024,
-                        classes: int = 17) -> float:
-    """DGCNN's forward as the loss needs it: the EdgeConv Dense layers once
-    a neighbour row, the embedding, the two head layers and the classifier
-    once a point (not the offset and distance heads, which no loss of the
-    preset reads)."""
-    pair = b * n * k
-    edge = (dense_flops(pair, 2 * c, 64) + dense_flops(pair, 64, 64)
-            + dense_flops(pair, 128, 64) + dense_flops(pair, 64, 64)
-            + dense_flops(pair, 128, 64))
-    rows = b * n
-    return (edge + dense_flops(rows, 192, emb) + dense_flops(rows, emb + 192, 512)
-            + dense_flops(rows, 512, 256)
-            + dense_flops(rows, 256, classes))
-
-
-def dgcnn_train_flops(config: dict) -> float:
-    """A training step of the configuration: the forward and a backward of
-    twice its products."""
-    return 3.0 * dgcnn_forward_flops(config["batch_size"], config["n_points"],
-                                     config["model_parameter"]["k"])
-
-
-def dgcnn_k2_bound_s(config: dict) -> float:
-    """The bound of a training step's K2 calls: each EdgeConv's self-kNN in
-    feature space, at C = 6 (the input) and twice at C = 64."""
-    b, n, k = config["batch_size"], config["n_points"], config["model_parameter"]["k"]
-    return knn_bound_s(6, b, n, n, k, True) + 2 * knn_bound_s(64, b, n, n, k, True)

@@ -1,5 +1,6 @@
-"""The window's training FLOPs (``counts.dgcnn_train_flops`` of each step)
-over the window's seconds, as a share of the card's float32 peak."""
+"""The window's training FLOPs (the task's ``train_flops`` of each step,
+``reference/<task>.py``) over the window's seconds, as a share of the
+card's float32 peak."""
 
 import counts
 

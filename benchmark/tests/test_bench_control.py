@@ -5,9 +5,14 @@ out as not correct, while the program comes out correct."""
 
 from __future__ import annotations
 
+import json
+
 import pytest
 
 from conftest import run_cell
+
+# the tgnet_fps and pointtransformer presets' optimizer
+SGD = {"name": "sgd", "momentum": 0.9, "lr": 0.1, "weight_decay": 1e-4}
 
 
 @pytest.mark.parametrize("cell", ["tgnet.serve", "dgcnn.train"])
@@ -41,3 +46,14 @@ def test_window_steps_are_followed(tiny):
                if not k.startswith("window_")), checks
     assert any(c["value"] > c["limit"] for k, c in checks.items()
                if k.startswith("window_")), checks
+
+
+@pytest.mark.parametrize("fault", [None, "unchanged_state", "window_unchanged_state",
+                                   "half_batch"])
+def test_sgd_route(tiny, fault):
+    """The DGCNN cell under SGD with momentum: correct, and each fault not
+    correct, through the same check."""
+    path = tiny / "benchmark" / "configs" / "dgcnn.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()), optimizer=SGD)))
+    out = run_cell(tiny, "dgcnn.train", faults=[fault] if fault else [])["result"]
+    assert out["correct"] is (fault is None), out["checks"]

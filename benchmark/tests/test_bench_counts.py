@@ -3,6 +3,7 @@ the FLOP functions held to ``FlopCounterMode`` over the plain references."""
 
 from __future__ import annotations
 
+import json
 import sys
 
 import pytest
@@ -14,7 +15,7 @@ from conftest import BENCH
 sys.path.insert(0, str(BENCH))
 
 import counts  # noqa: E402
-from reference.dgcnn import DgcnnReference  # noqa: E402
+from reference import dgcnn  # noqa: E402
 from reference.ops import Precision  # noqa: E402
 from reference.pointtransformer import Backbone  # noqa: E402
 
@@ -65,10 +66,19 @@ def test_dgcnn_flops():
     params = {n: torch.randn(p.shape, generator=gen) * 0.1
               for n, p in model.named_parameters()}
     buffers = {n: b.clone() for n, b in model.named_buffers()}
-    ref = DgcnnReference(params, buffers, 5, 1e-3, 1e-4)
+    cfg = {"batch_size": 1, "n_points": 300, "model_parameter": {"k": 5}}
+    ref = dgcnn.TrainReference(params, buffers, cfg)
     feat = torch.randn(1, 300, 6, generator=gen)
     with FlopCounterMode(display=False) as fc:
         ref.forward(ref.p, feat, None, torch.Generator().manual_seed(1))
-    assert fc.get_total_flops() == counts.dgcnn_forward_flops(1, 300, 5)
-    cfg = {"batch_size": 1, "n_points": 300, "model_parameter": {"k": 5}}
-    assert counts.dgcnn_train_flops(cfg) == 3 * counts.dgcnn_forward_flops(1, 300, 5)
+    assert fc.get_total_flops() == dgcnn.forward_flops(1, 300, 5)
+    assert dgcnn.train_flops(cfg) == 3 * dgcnn.forward_flops(1, 300, 5)
+
+
+def test_dgcnn_yardstick_pinned():
+    # the dgcnn configuration's step FLOPs and K2 bound, which train.mfu and
+    # k2_roofline read: held bit-equal so that a move of the yardstick
+    # cannot move the metrics
+    cfg = json.loads((BENCH / "configs" / "dgcnn.json").read_text())
+    assert dgcnn.train_flops(cfg) == 210456576000.0
+    assert dgcnn.kernel_bounds_s(cfg) == {"k2": 0.0012423161194029851}

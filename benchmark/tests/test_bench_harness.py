@@ -8,6 +8,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -97,6 +98,49 @@ def test_cell_added_by_files_alone(tiny):
     after = digest(tiny / "benchmark")
     assert {k: v for k, v in after.items() if k in before} == before
     assert set(after) - set(before) == {"workloads/tgnet.serve_two.json"}
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_training_cell_of_another_task_by_files_alone(tiny, trace):
+    """A training cell of a second task, pointnet: its configuration, its
+    traffic mix and its reference module (``pointnet_reference.py`` beside
+    this test) as new files, its entries appended to BENCHMARK.json; no
+    file of the benchmark is edited, and the kind finds the task's
+    reference and yardstick by its name."""
+    bench = tiny / "benchmark"
+    before = digest(bench)
+    cfg = json.loads((bench / "configs" / "dgcnn.json").read_text())
+    del cfg["emb_dims"]
+    cfg.update(model_name="pointnet", model_parameter={"scale": 1})
+    (bench / "configs" / "pointnet.json").write_text(json.dumps(cfg))
+    wl = json.loads((bench / "workloads" / "dgcnn.train.json").read_text())
+    wl["model"] = "pointnet"
+    (bench / "workloads" / "pointnet.train.json").write_text(json.dumps(wl))
+    shutil.copy(Path(__file__).with_name("pointnet_reference.py"),
+                bench / "reference" / "pointnet.py")
+    spec = json.loads((tiny / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "pointnet", "source": "https://arxiv.org/abs/1612.00593",
+                            "file": "benchmark/configs/pointnet.json",
+                            "reduced": ["model_parameter"], "why": "a second trained task"})
+    spec["workloads"].append({"name": "pointnet.train", "config": "pointnet",
+                              "traffic": "pointnet.train", "chips": 1,
+                              "why": "Trainer.train_epoch over the arch cases"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "dgcnn.train" in m.get("workloads", []):
+            m["workloads"].append("pointnet.train")
+    (tiny / "BENCHMARK.json").write_text(json.dumps(spec))
+    out = run_cell(tiny, "pointnet.train", trace=trace)["result"]
+    assert out["correct"] is True, out["checks"]
+    if trace:
+        # its FLOPs read from its own module; no kernel of its step has a bound
+        assert "train.mfu" in out["metrics"] and "k2_roofline" not in out["metrics"]
+    else:
+        assert set(out["metrics"]) == {"train_clouds_per_s", "setup_s"}
+    after = digest(bench)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {"configs/pointnet.json",
+                                        "workloads/pointnet.train.json",
+                                        "reference/pointnet.py"}
 
 
 def test_fitted_weights_kept_in_the_checkout(tiny):

@@ -42,6 +42,7 @@ def test_reference_loads_nothing_of_the_program():
     code = ("import sys; sys.path[:0] = [sys.argv[1]];"
             "import reference.tgnet, reference.dgcnn, reference.ops, reference.mesh;"
             "import reference.pointtransformer, reference.clustering, reference.fusion;"
+            "import reference.optim, reference.training;"
             "import json; print(json.dumps(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code, str(BENCH)], capture_output=True,
                          text=True, timeout=300, check=True)

@@ -1,5 +1,6 @@
 """Traffic kind ``train_steps``: ``Trainer.train_epoch`` over a loader of
-labelled synthetic arch cases, epoch after epoch.
+labelled synthetic arch cases, epoch after epoch, for any task the port
+registers and either optimizer its ``make_optimizer`` builds.
 
 The traffic file names the task (``model``), the cases (``[ns, nu, teeth,
 jaw]`` each: the arch mesh the case's points are drawn from, so every seed
@@ -8,7 +9,7 @@ trains on the same sizes), the warm-up epochs, the steps the check follows
 the batch, the optimizer, the augmentation and the model's sizes. The seed
 draws the cases, the weights, the loader's order and the augmentation.
 
-Set-up builds one ``Trainer`` (the program's model, Adam state and
+Set-up builds one ``Trainer`` (the program's model, optimizer state and
 dropout generator) over the loader, loads weights drawn from the seed and
 runs the warm-up epochs through ``train_epoch``, the window's own call. The
 window hands that same trainer on and runs whole epochs until ``--seconds``
@@ -18,18 +19,38 @@ seconds, the loader's included.
 The check follows ``check_steps`` steps twice: the first steps of set-up,
 from the seeded weights (``loss_gap``, ``grad_gap``, ``change_gap``), and
 the first steps of the window (``window_*``), from the state the window
-began with: the weights, the running statistics and Adam's moments, kept
-before its first step. After the window, with the program's state freed,
-the plain reference (``reference/<model>.py``) takes each start, works out
-the same batches from the case files, the loader's seed and the
-augmentation's (the epochs before replayed), and takes ``check_steps``
-steps. Compared: each step's loss, each leaf's first gradient as Adam got
-it (worked out from its first moment before and after the first step), and
+began with: the weights, the running statistics and the optimizer's state,
+kept before its first step. After the window, with the program's state
+freed, the plain reference takes each start, works out the same batches
+from the case files, the loader's seed and the augmentation's (the epochs
+before replayed), and takes ``check_steps`` steps, its optimizer
+(``reference/optim.py``, the configuration's) going on from the program's
+state and at the configuration's learning rate. Compared: each step's
+loss, each leaf's first gradient as the optimizer took it (worked out from
+its state before and after the first step, ``optim.first_gradient``), and
 each leaf's change after the steps (parameters and the running
 statistics), by the gap of their norms, against the larger of the leaf's
 own norm and the median leaf's; leaves whose reference gradient is under a
-thousandth of the median leaf's are left out of the change, since Adam
-moves them by rounding alone.
+thousandth of the median leaf's are left out of the change, since the
+optimizer moves them by rounding alone.
+
+A task's reference module, ``reference/<model>.py``, found by the name,
+gives:
+
+* ``TrainReference(params, buffers, config, prec)``: the plain model from
+  name -> tensor dicts as the program's ``named_parameters`` and
+  ``named_buffers`` give them, with ``p`` and ``b``, those dicts (the
+  optimizer replaces ``p``'s entries), and ``gradients(batch, generator) ->
+  (loss, {name: gradient or None})``, which moves ``b``'s running
+  statistics; ``prec`` is ``reference.ops.Precision``, TF32 for the control;
+* ``batches(paths, config, loader_seed, data_seed, start, steps, device)``:
+  the loader's batches ``start`` on, and ``dropout_seed(seed, step)``: the
+  dropout generator's seed of a step (``reference/training.py`` has both
+  for the port's ``BatchLoader`` and ``Trainer``);
+* the yardstick: ``train_flops(config)``, a step's FLOPs, and
+  ``kernel_bounds_s(config) -> {kernel: seconds}``, the bound of a step's
+  calls of each kernel a roofline metric reads (``records["<kernel>_bound_s"]``
+  over the window's steps), from ``counts.py``'s primitives.
 """
 
 from __future__ import annotations
@@ -43,24 +64,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import counts
 import synthetic
 import weights
 from harness import Check
-
-BETA1 = 0.9
+from reference import optim
 
 
 @dataclass
 class Followed:
     """``check_steps`` steps of the program from loader count ``start``:
-    the state before them (``before``: params, buffers, Adam's moments and
-    step), each step's loss, Adam's first moment after the first step and
-    the state after the last."""
+    the state before them (``before``: params, buffers and each leaf's
+    optimizer state), each step's loss, the optimizer's state after the
+    first step and the state after the last."""
     start: int
     before: dict
     losses: list = field(default_factory=list)
-    moment: dict | None = None
+    first: dict | None = None
     after: dict | None = None
 
 
@@ -122,6 +141,7 @@ class Traffic:
             int(s) for s in self.rng.integers(2 ** 62, size=3))
 
         marks.append(("cases", time.perf_counter()))
+        self.ref = importlib.import_module(f"reference.{self.w['model']}")
         task = get_task(self.w["model"])
         config = task.default_config()
         config.seed = run.seed
@@ -129,7 +149,6 @@ class Traffic:
         config.optimizer = dataclasses.replace(config.optimizer, **cfg["optimizer"])
         config.generator.aug_specs = [tuple(s) for s in cfg["aug_specs"]]
         config.checkpoint_path = str(run.workdir / "ckpt")
-        self.config = config
         dataset = DentalScanDataset(str(self.case_dir),
                                     augmenter=build_augmenter(config.generator.aug_specs),
                                     seed=self.data_seed)
@@ -170,28 +189,24 @@ class Traffic:
                                         in zip(marks, marks[1:])))
 
     def _state(self) -> dict:
-        """Copies of the params, the buffers and Adam's moments and step
-        (zero moments for a leaf Adam has not stepped)."""
-        m, opt = self.trainer.model, self.trainer.optimizer
-        params = dict(m.named_parameters())
-
-        def moment(key):
-            return {n: opt.state[p][key].detach().clone() if p in opt.state
-                    else torch.zeros_like(p) for n, p in params.items()}
-
-        steps = [int(opt.state[p]["step"]) for p in params.values() if p in opt.state]
-        return {"params": {n: p.detach().clone() for n, p in params.items()},
+        """Copies of the params, the buffers and the optimizer's state."""
+        m = self.trainer.model
+        return {"params": {n: p.detach().clone() for n, p in m.named_parameters()},
                 "buffers": {n: b.detach().clone() for n, b in m.named_buffers()},
-                "exp_avg": moment("exp_avg"), "exp_avg_sq": moment("exp_avg_sq"),
-                "step": max(steps, default=0)}
+                "optim": self._optim_state()}
+
+    def _optim_state(self) -> dict:
+        """Each leaf's optimizer state, copied whole (empty where the
+        optimizer has not stepped the leaf)."""
+        state = self.trainer.optimizer.state
+        return {n: {k: v.detach().clone() if torch.is_tensor(v) else v
+                    for k, v in state.get(p, {}).items()}
+                for n, p in self.trainer.model.named_parameters()}
 
     def _on_next(self, j: int) -> None:
         for f in self.followed:
             if j == f.start + 1:
-                opt = self.trainer.optimizer
-                f.moment = {n: opt.state[p]["exp_avg"].detach().clone()
-                            if p in opt.state else torch.zeros_like(p)
-                            for n, p in self.trainer.model.named_parameters()}
+                f.first = self._optim_state()
             if j == f.start + self.w["check_steps"]:
                 f.after = self._state()
 
@@ -220,14 +235,14 @@ class Traffic:
                      f"min {gaps.min():.4f} median {np.median(gaps):.4f} max {gaps.max():.4f}")
         steps = loader.count - steps0
         clouds = steps * self.cfg["batch_size"]
-        model = self.w["model"]
         wall0 = time.time_ns() - time.perf_counter_ns()
         self.records.setdefault("spans", []).extend(
             (n, wall0 + int(a * 1e9), wall0 + int(b * 1e9)) for n, a, b in loader.spans or ())
         self.records.update(
             steps=steps, load_s=loader.load_s, window_s=elapsed,
-            flops=steps * getattr(counts, f"{model}_train_flops")(self.cfg),
-            k2_bound_s=steps * getattr(counts, f"{model}_k2_bound_s")(self.cfg))
+            flops=steps * self.ref.train_flops(self.cfg),
+            **{f"{k}_bound_s": steps * v
+               for k, v in self.ref.kernel_bounds_s(self.cfg).items()})
         return {"attempted": clouds, "failed": 0,
                 "metrics": {"train_clouds_per_s": clouds / elapsed}}
 
@@ -243,8 +258,12 @@ class Traffic:
         for f, prefix in zip(followed, ("", "window_")):
             before = f.before
             prog = {"losses": [float(v) for v in f.losses],
-                    "first": first_gradient(before["exp_avg"], f.moment), "after": f.after}
+                    "first": optim.first_gradient(self.cfg["optimizer"], before["optim"],
+                                                  f.first, before["params"]),
+                    "after": f.after}
             ref = self.reference(f, Precision())
+            self.run.log(f"{prefix}losses (program, reference): " + ", ".join(
+                f"{a!r} {b!r}" for a, b in zip(prog["losses"], ref["losses"])))
             readings.update({prefix + k: v for k, v in judge(prog, ref, before).items()})
             if self.run.control:
                 ctrl = self.reference(f, Precision(tf32=True))
@@ -260,30 +279,30 @@ class Traffic:
         ``f.start`` on: each step's loss, the first gradient, the state
         after."""
         dev = torch.device(self.run.device)
-        mod = importlib.import_module(f"reference.{self.w['model']}")
-        before = f.before
-        ref = mod.TrainReference(before["params"], before["buffers"], self.cfg,
-                                 self.config.optimizer.lr,
-                                 self.config.optimizer.weight_decay, prec,
-                                 moments=(before["exp_avg"], before["exp_avg_sq"],
-                                          before["step"]))
+        mod, before = self.ref, f.before
+        ref = mod.TrainReference(before["params"], before["buffers"], self.cfg, prec)
+        opt = optim.build(self.cfg["optimizer"], before["optim"])
         batches = mod.batches(sorted(Path(self.case_dir).glob("*_sampled_points.npy")),
                               self.cfg, self.loader_seed, self.data_seed, f.start,
                               self.w["check_steps"], dev)
         losses, first = [], None
-        for step, batch in enumerate(batches, start=f.start):
-            gen = torch.Generator(device=dev).manual_seed(mod.dropout_seed(self.run.seed, step))
-            loss, grads = ref.step(batch, gen)
-            losses.append(loss)
-            first = grads if first is None else first
+        # the reference's own reading of a seed repeats: its gathers'
+        # backward accumulates in a fixed order (on the card, atomics made
+        # the later steps' losses differ by up to 2e-5 between runs)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            for step, batch in enumerate(batches, start=f.start):
+                gen = torch.Generator(device=dev).manual_seed(
+                    mod.dropout_seed(self.run.seed, step))
+                loss, grads = ref.gradients(batch, gen)
+                took = opt.step(ref.p, grads)
+                losses.append(loss)
+                first = took if first is None else first
+        finally:
+            torch.use_deterministic_algorithms(was)
         return {"losses": losses, "first": first,
                 "after": {"params": ref.p, "buffers": ref.b}}
-
-
-def first_gradient(before: dict, after: dict) -> dict:
-    """Each leaf's gradient as Adam took it in one step, from its first
-    moment before and after: ``(m1 - beta1 m0) / (1 - beta1)``."""
-    return {n: (after[n] - BETA1 * before[n]) / (1 - BETA1) for n in after}
 
 
 def judge(got: dict, ref: dict, start: dict) -> dict:
